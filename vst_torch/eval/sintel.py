@@ -1,0 +1,273 @@
+"""Sintel video eval harness: TCL-ST / TCL-LT / DT, port of
+``vst/eval/sintel.py`` (``utils/sintel_eval.py:142-233``).
+
+Per video × style: stylize every frame (timed → DT), estimate RAFT flow
+between the current and the previous (ST) / 5-back (LT) frame, build the
+fb-consistency mask, backward-warp the re-stylized earlier frame and take
+the RMS masked difference. Quirks kept (PARITY.md): frames cropped to 432
+rows; ``computeTCL`` re-stylizes the earlier frame; the caller's pipeline
+range goes to RAFT unchanged unless ``raft_preprocess`` says otherwise.
+
+Frames are NCHW tensors on the harness's device. DT is timed with CUDA
+events after a ``torch.cuda.synchronize()`` on the card (the reference's
+timer has no sync) and with the host clock on the CPU.
+
+``evaluate_videos_sharded`` (multi-GPU) is not ported yet.
+"""
+
+from __future__ import annotations
+
+import os
+import time
+from typing import Callable, Dict, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from vst_torch import set_f32_precision
+from vst_torch.core.metrics import aggregate_means, save_json
+from vst_torch.ops.flowtools import fbc_mask
+from vst_torch.ops.image import InputPadder
+from vst_torch.ops.sample import warp
+
+
+class SintelVideo:
+    """One video's frames in host memory: (N, H, W, 3) float32 [0, 1], H=432."""
+
+    def __init__(self, name: str, frames: np.ndarray):
+        self.name = name
+        self.frames = frames
+
+    def __len__(self):
+        return self.frames.shape[0]
+
+
+def load_sintel_videos(sintel_dir: str, crop_h: int = 432) -> List[SintelVideo]:
+    """training/final + test/final videos, frames sorted and cropped to
+    ``crop_h`` rows (``sintel_eval.py:156-167``, SingleSintelVideo)."""
+    import imageio.v2 as imageio
+
+    videos = []
+    for split in ("training", "test"):
+        base = os.path.join(sintel_dir, split, "final")
+        if not os.path.isdir(base):
+            continue
+        for vid in sorted(os.listdir(base)):
+            vdir = os.path.join(base, vid)
+            frames = [imageio.imread(os.path.join(vdir, fid)).astype(np.float32)[:crop_h] / 255.0
+                      for fid in sorted(os.listdir(vdir))]
+            videos.append(SintelVideo(vid, np.stack(frames)))
+    return videos
+
+
+def _tcl_value(mask, x_fake, warped):
+    return torch.sqrt(torch.mean((mask * (x_fake - warped)) ** 2))
+
+
+def make_tcl_program(stylize_fn: Callable, raft_apply: Callable,
+                     raft_preprocess: Optional[Callable] = None):
+    """The per-frame eval programs.
+
+    stylize_fn(img, style) → stylized frame of the same size, in the
+    caller's pipeline range. raft_apply(img1, img2) → (flow_low, flow_up)
+    with flow_up (B, 2, H, W). raft_preprocess maps pipeline frames to what
+    the method family feeds RAFT (identity by default).
+
+    Returns ``tcl(img, img_earlier, style) → (x_fake, tcl)``,
+    ``stylize(img, style)``, ``tcl_gt(img, img_earlier, style, ff, bf)`` and
+    ``tcl2(img, img_st, img_lt, style) → (x_fake, tcl_st, tcl_lt)``.
+    """
+    prep = raft_preprocess or (lambda x: x)
+
+    def compute_raft_multi(imgs_a, imgs_b):
+        """K flow pairs, forward AND backward, in ONE RAFT call at batch 2K;
+        rows [0, K) are the forward flows a_i→b_i, rows [K, 2K) backward."""
+        padder = InputPadder(imgs_a[0].shape)
+        padded = [padder.pad(prep(a), prep(b)) for a, b in zip(imgs_a, imgs_b)]
+        a = torch.cat([p[0] for p in padded] + [p[1] for p in padded], 0)
+        b = torch.cat([p[1] for p in padded] + [p[0] for p in padded], 0)
+        _, flow_up = raft_apply(a, b)
+        n = imgs_a[0].shape[0]
+        k = len(imgs_a)
+        fwd = [padder.unpad(flow_up[i * n:(i + 1) * n]) for i in range(k)]
+        bwd = [padder.unpad(flow_up[(k + i) * n:(k + i + 1) * n]) for i in range(k)]
+        return fwd, bwd
+
+    @torch.no_grad()
+    def tcl(img, img2, style):
+        """computeTCL (``sintel_eval.py:104-110``): img = current frame,
+        img2 = earlier frame."""
+        x_fake = stylize_fn(img, style)
+        (ff,), (bf,) = compute_raft_multi([img2], [img])
+        warped = warp(stylize_fn(img2, style), bf)
+        return x_fake, _tcl_value(fbc_mask(ff, bf), x_fake, warped)
+
+    @torch.no_grad()
+    def tcl_gt(img, img2, style, ff, bf):
+        """The same metric with given flow (a dataset's or a motion oracle's)."""
+        x_fake = stylize_fn(img, style)
+        warped = warp(stylize_fn(img2, style), bf)
+        return x_fake, _tcl_value(fbc_mask(ff, bf), x_fake, warped)
+
+    @torch.no_grad()
+    def tcl2(img, img_st, img_lt, style):
+        """ST and LT TCL of one frame: the current frame is stylized once and
+        both flow pairs share one RAFT call at batch 4."""
+        x_fake = stylize_fn(img, style)
+        fwd, bwd = compute_raft_multi([img_st, img_lt], [img, img])
+        vals = [_tcl_value(fbc_mask(ff, bf), x_fake, warp(stylize_fn(earlier, style), bf))
+                for ff, bf, earlier in zip(fwd, bwd, (img_st, img_lt))]
+        return x_fake, vals[0], vals[1]
+
+    @torch.no_grad()
+    def stylize(img, style):
+        return stylize_fn(img, style)
+
+    return tcl, stylize, tcl_gt, tcl2
+
+
+def chain_ms(fn, x, iters: int) -> float:
+    """Mean ms per call of ``iters`` chained calls x = fn(x), on x's device."""
+    if x.is_cuda:
+        torch.cuda.synchronize(x.device)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            x = fn(x)
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / iters
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        x = fn(x)
+    float(x.sum())
+    return (time.perf_counter() - t0) / iters * 1000.0
+
+
+@torch.no_grad()
+def evaluate_videos(
+    videos: Sequence[SintelVideo],
+    stylize_fn: Callable,
+    raft_apply: Callable,
+    styles: Sequence,
+    out_path: Optional[str] = None,
+    lt_len: int = 5,
+    frame_transform: Optional[Callable] = None,
+    raft_preprocess: Optional[Callable] = None,
+    save_frames: bool = False,
+    dt_iters: int = 20,
+    num_domains: Optional[int] = None,
+    flow_fn: Optional[Callable] = None,
+    save_transform: Optional[Callable] = None,
+    device="cuda",
+) -> Dict[str, Dict[str, float]]:
+    """Run the Sintel benchmark on ``device`` (CUDA unless the caller asks
+    for the CPU; there is no fallback). Sets float32 precision first
+    (TF32 off, ``set_f32_precision``).
+
+    ``styles``: style ids; style index d is reported as ``_s{d+1}``.
+    ``frame_transform`` maps [0,1] frames into the pipeline range;
+    ``save_transform(style_index, frame)`` post-processes saved PNGs only;
+    ``flow_fn(video, i, j)`` → (ff, bf) numpy (H, W, 2) replaces RAFT.
+    Returns {"TCL-ST": {...}, "TCL-LT": {...}, "DT": {...}} with the
+    reference's ``<ID>_mean`` / ``<ID>_mean_s{d}`` aggregation; writes the
+    JSONs when ``out_path`` is given.
+    """
+    set_f32_precision()
+    device = torch.device(device)
+    ft = frame_transform or (lambda x: x)
+    progs = make_tcl_program(stylize_fn, raft_apply, raft_preprocess=raft_preprocess)
+    styles = [torch.as_tensor(s, device=device) for s in styles]
+
+    def to_device(frames):
+        return torch.from_numpy(np.ascontiguousarray(ft(frames), np.float32)).permute(
+            0, 3, 1, 2).contiguous().to(device)
+
+    # warm every (resolution, style) stylize before any DT timing
+    if dt_iters > 0:
+        seen_hw = set()
+        for video in videos:
+            hw = video.frames.shape[1:3]
+            if hw in seen_hw:
+                continue
+            seen_hw.add(hw)
+            f0 = to_device(video.frames[:1])
+            for style in styles:
+                for _ in range(2):
+                    float(progs[1](f0, style).sum())
+
+    tcl_st: Dict[str, float] = {}
+    tcl_lt: Dict[str, float] = {}
+    dt: Dict[str, float] = {}
+    for video in videos:
+        frames = to_device(video.frames)
+        for d, style in enumerate(styles):
+            key = f"{video.name}_s{d + 1}"
+            tcl_st[f"TCL-ST_{key}"], tcl_lt[f"TCL-LT_{key}"], dt[f"DT_{key}"] = _eval_one(
+                video, frames, d, style, progs, lt_len, dt_iters, save_frames,
+                out_path, flow_fn, save_transform)
+
+    nd = (num_domains or len(styles) + 1) - 1
+    results = {}
+    for out_id, data in (("TCL-ST", tcl_st), ("TCL-LT", tcl_lt), ("DT", dt)):
+        agg = aggregate_means(data, num_styles=nd)
+        agg[f"{out_id}_mean"] = agg.pop("_mean")
+        for d in range(1, nd + 1):
+            if f"_mean_s{d}" in agg:
+                agg[f"{out_id}_mean_s{d}"] = agg.pop(f"_mean_s{d}")
+        results[out_id] = agg
+        if out_path:
+            save_json(agg, os.path.join(out_path, out_id + ".json"), aggregate=False)
+    return results
+
+
+def _eval_one(video, frames, d, style, progs, lt_len, dt_iters, save_frames,
+              out_path, flow_fn, save_transform):
+    """One (video, style) pass: DT chained timing, then per-frame ST/LT TCL."""
+    tcl_prog, stylize_prog, tcl_gt_prog, tcl2_prog = progs
+    key = f"{video.name}_s{d + 1}"
+    n = len(video)
+    st_vals, lt_vals = [], []
+
+    # DT: the stylize program alone (the reference times only the generator
+    # call, sintel_eval.py:210-214); chained, best of 2 windows
+    float(stylize_prog(frames[0:1], style).sum())
+    dt_ms = min(chain_ms(lambda x: stylize_prog(x, style), frames[0:1], dt_iters)
+                for _ in range(2)) if dt_iters > 0 else 0.0
+
+    def tcl_pair(img, j, i):
+        if flow_fn is None:
+            return tcl_prog(img, frames[j:j + 1], style)[1]
+        ff, bf = (torch.from_numpy(np.asarray(f, np.float32)).permute(2, 0, 1)[None].to(frames.device)
+                  for f in flow_fn(video, i, j))
+        return tcl_gt_prog(img, frames[j:j + 1], style, ff, bf)[1]
+
+    for i in range(n):
+        img = frames[i:i + 1]
+        if i >= lt_len and flow_fn is None:
+            _, st_v, lt_v = tcl2_prog(img, frames[i - 1:i],
+                                      frames[i - lt_len:i - lt_len + 1], style)
+            st_vals.append(float(st_v))
+            lt_vals.append(float(lt_v))
+        else:
+            if i > 0:
+                st_vals.append(float(tcl_pair(img, i - 1, i)))
+            if i >= lt_len:
+                lt_vals.append(float(tcl_pair(img, i - lt_len, i)))
+        if save_frames and out_path:
+            x_fake = stylize_prog(img, style)[0].permute(1, 2, 0).cpu().numpy()
+            if save_transform is not None:
+                x_fake = save_transform(d, x_fake)
+            _save_frame(x_fake, os.path.join(out_path, key, f"frame_{i:04d}.png"))
+
+    st = float(np.mean(st_vals)) if st_vals else 0.0
+    lt = float(np.mean(lt_vals)) if lt_vals else 0.0
+    return st, lt, dt_ms
+
+
+def _save_frame(x: np.ndarray, path: str) -> None:
+    import imageio.v2 as imageio
+
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    imageio.imwrite(path, (np.clip(x, 0.0, 1.0) * 255).astype(np.uint8))

@@ -1,0 +1,165 @@
+"""Wrapper of the Hopper correlation-window lookup
+(``vst_torch/csrc/corr_lookup.cu``), which replaces the TPU kernel
+``vst/kernels/pallas_corr.py`` (``_kernel`` / ``pallas_lookup_level``).
+
+``corr_lookup(pyramid, coords, radius)`` computes
+``vst_torch.flow.corr.lookup_pyramid``: for CPU tensors by calling it, for
+CUDA tensors by launching the kernel, which it builds with ``nvcc`` at first
+use into ``vst_torch/_build/`` (listed in ``.gitignore``) and loads with
+ctypes. A build or launch that fails raises. ``corr_lookup.launches``
+counts kernel launches.
+
+Backward: the TPU kernel had no backward kernel of its own
+(``pallas_corr.py:_lookup_bwd``), so the backward recomputes through the
+plain version's autograd, on whichever device the inputs lie.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+from typing import Sequence
+
+import torch
+
+from vst_torch.flow.corr import lookup_pyramid
+
+_PKG = Path(__file__).resolve().parents[1]
+SOURCE = _PKG / "csrc" / "corr_lookup.cu"
+BUILD_DIR = _PKG / "_build"
+MAX_LEVELS = 4
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
+
+_loaded: dict = {}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    path = os.path.join(cuda_home, "bin", "nvcc")
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the corr_lookup kernel cannot be built")
+    return path
+
+
+def build() -> str:
+    """Compile (once per source version) and load the kernel library.
+
+    Returns nvcc's report (registers, spills) from this process's build, or
+    an empty string when the library was already built or loaded.
+    """
+    if "lib" in _loaded:
+        return ""
+    src = SOURCE.read_bytes()
+    tag = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    so = BUILD_DIR / f"libcorr_lookup_{tag}.so"
+    log = ""
+    if not so.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        try:
+            proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, str(SOURCE)],
+                                  capture_output=True, text=True)
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+            os.replace(tmp, so)
+        finally:
+            if os.path.exists(tmp):
+                os.remove(tmp)
+        log = proc.stdout + proc.stderr
+    lib = ctypes.CDLL(str(so))
+    fn = lib.corr_lookup_launch
+    fn.argtypes = ([ctypes.c_void_p] * 4
+                   + [ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int),
+                      ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+                      ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
+                      ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    _loaded["lib"] = lib
+    return log
+
+
+def _check(pyramid: Sequence[torch.Tensor], coords: torch.Tensor, radius: int) -> None:
+    if not 1 <= len(pyramid) <= MAX_LEVELS:
+        raise ValueError(f"corr_lookup takes 1..{MAX_LEVELS} levels, got {len(pyramid)}")
+    if int(radius) != radius or radius < 0:
+        raise ValueError(f"radius must be a non-negative int, got {radius}")
+    if coords.dim() != 4 or coords.shape[1] != 2:
+        raise ValueError(f"coords must be (B, 2, H, W), got {tuple(coords.shape)}")
+    B, _, H, W = coords.shape
+    q = B * H * W
+    for t in (coords, *pyramid):
+        if t.dtype != torch.float32:
+            raise TypeError(f"corr_lookup takes float32, got {t.dtype}")
+        if t.device != coords.device:
+            raise ValueError(f"inputs on {t.device} and {coords.device}")
+        if not t.is_contiguous():
+            raise ValueError("corr_lookup takes contiguous tensors")
+    if coords.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"corr_lookup runs on cpu or cuda, got {coords.device}")
+    for lvl in pyramid:
+        if lvl.dim() != 4 or lvl.shape[0] != q or lvl.shape[1] != 1:
+            raise ValueError(
+                f"pyramid levels must be ({q}, 1, h, w), got {tuple(lvl.shape)}")
+
+
+def _launch(pyramid: Sequence[torch.Tensor], coords: torch.Tensor, radius: int) -> torch.Tensor:
+    build()
+    B, _, H, W = coords.shape
+    n = 2 * radius + 1
+    out = torch.empty((B, H, W, len(pyramid) * n * n), dtype=torch.float32,
+                      device=coords.device)
+    ptrs = [lvl.data_ptr() for lvl in pyramid] + [None] * (MAX_LEVELS - len(pyramid))
+    heights = (ctypes.c_int * MAX_LEVELS)(*[lvl.shape[2] for lvl in pyramid])
+    widths = (ctypes.c_int * MAX_LEVELS)(*[lvl.shape[3] for lvl in pyramid])
+    with torch.cuda.device(coords.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _loaded["lib"].corr_lookup_launch(
+            *ptrs, heights, widths, len(pyramid), coords.data_ptr(), out.data_ptr(),
+            B * H * W, H * W, radius, stream)
+    if err != 0:
+        raise RuntimeError(f"corr_lookup kernel launch failed: cudaError {err}")
+    corr_lookup.launches += 1
+    return out.permute(0, 3, 1, 2)
+
+
+class _CorrLookup(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, radius, coords, *pyramid):
+        ctx.radius = radius
+        ctx.save_for_backward(coords, *pyramid)
+        if coords.is_cuda:
+            return _launch(pyramid, coords, radius)
+        return lookup_pyramid(pyramid, coords, radius)
+
+    @staticmethod
+    def backward(ctx, grad):
+        coords, *pyramid = ctx.saved_tensors
+        with torch.enable_grad():
+            inputs = [t.detach().requires_grad_(need) for t, need in
+                      zip([coords, *pyramid], ctx.needs_input_grad[1:])]
+            out = lookup_pyramid(inputs[1:], inputs[0], ctx.radius)
+            wanted = [t for t in inputs if t.requires_grad]
+            grads = iter(torch.autograd.grad(out, wanted, grad, allow_unused=True))
+        return (None, *[next(grads) if t.requires_grad else None for t in inputs])
+
+
+def corr_lookup(pyramid: Sequence[torch.Tensor], coords: torch.Tensor,
+                radius: int) -> torch.Tensor:
+    """Drop-in for ``lookup_pyramid``: pyramid levels (B·H·W, 1, h_l, w_l)
+    and coords (B, 2, H, W), all contiguous float32 on one device. Returns
+    (B, L·(2r+1)², H, W), an NCHW view of a channel-last tensor."""
+    _check(pyramid, coords, radius)
+    return _CorrLookup.apply(int(radius), coords, *pyramid)
+
+
+corr_lookup.launches = 0
