@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
-"""Drive the vst_torch port's main path once on one NVIDIA GPU and check it.
+"""Drive the vst_torch port's paths once on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py    # from the repository root
 
 Phases, one JSON line each; any failure raises and the exit code is not 0:
 
-1. build: compile the corr-lookup kernel (vst_torch/csrc/corr_lookup.cu)
-   with nvcc into vst_torch/_build/.
+1. build: compile the three kernels (vst_torch/csrc/{corr_lookup,
+   pad_conv3x3,gemm_rate}.cu), one nvcc each, all at once, into
+   vst_torch/_build/; ptxas registers and spills per library.
 2. kernel: corr_lookup against its plain version lookup_pyramid at the
    Sintel tcl2 shape, a ragged shape and the CPU-test shape (≤ 1e-5
    absolute); its time beside the plain version's, the library yardstick's
@@ -19,10 +20,24 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
 5. main_path: evaluate_sintel_faststyle on a seeded synthetic 8-frame clip
    at 432×1024, styles (0, 1, 2), RAFT through the kernel; first the same
    harness at 64×96 against the plain lookup (TCL ≤ 1e-4 relative).
+6. trunk_conv: pad_conv3x3 (mode full) against its plain version at the
+   trunk shape 1×109×256×128, a ragged 2×13×37×64 and the CPU-test shapes,
+   f32 (≤ 1e-4 absolute) and bf16 (≤ 1e-3 + 2⁻⁷·|plain|); then the probe
+   vst_torch.probes.bisect_im2col: ms/conv over a 10-conv chain, plain,
+   cuDNN and bound.
+7. kernel_cost: the four modes against their plain versions at the trunk
+   and ragged shapes, then the probe vst_torch.probes.bisect_kernel_cost.
+8. gemm_rate: the kernel against its plain version at every (K, N) of the
+   sweep (f32 ≤ 1e-5·max|y|, bf16 ≤ 2⁻⁷·max|y|), then the probe
+   vst_torch.probes.bisect_mxu: ms, TF/s, cuBLAS ×64 and bound.
+9. bench: vst_torch.bench on f32_b1, bf16_b1 and bf16_b8 (eager chain and
+   CUDA-graph chain), and `vst_torch.cli bench-raft` on its f32 variant.
 
-Then the card's name and power limit (nvidia-smi), the kernels line and the
-result line. Float32 throughout with TF32 off. Weights are random, from
-seeds. Needs one CUDA device; exits 1 without one.
+Phases 5–9 each drive one path with the kernels' launch counts set to 0
+just before it and read just after; a kernel of the path that was never
+launched fails the run. Then the card's name and power limit (nvidia-smi),
+the kernels line and the result line. Float32 with TF32 off. Weights and
+inputs are random, from seeds. Needs one CUDA device; exits 1 without one.
 """
 
 from __future__ import annotations
@@ -31,31 +46,46 @@ import json
 import math
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from vst_torch import set_f32_precision
-from vst_torch.eval.drivers import evaluate_sintel_faststyle
-from vst_torch.eval.sintel import SintelVideo, chain_ms, make_tcl_program
-from vst_torch.eval.drivers import faststyle_stylize_fn
+from vst_torch import bench, set_f32_precision
+from vst_torch.cli.__main__ import main as cli_main
+from vst_torch.core.roofline import PEAK_BYTES_PER_S, PEAK_F32_OPS_PER_S
+from vst_torch.core.timing import chain_ms
+from vst_torch.eval.drivers import evaluate_sintel_faststyle, faststyle_stylize_fn
+from vst_torch.eval.sintel import SintelVideo, make_tcl_program
 from vst_torch.flow.corr import build_pyramid, lookup_pyramid
 from vst_torch.flow.raft import RAFT, coords_grid
+from vst_torch.kernels import _nvcc
 from vst_torch.kernels import corr_lookup as corr_lookup_module
+from vst_torch.kernels import gemm_rate as gemm_rate_module
+from vst_torch.kernels import pad_conv3x3 as pad_conv3x3_module
 from vst_torch.kernels.corr_lookup import corr_lookup
+from vst_torch.kernels.gemm_rate import gemm_rate, gemm_rate_plain
+from vst_torch.kernels.pad_conv3x3 import MODES, dtype_name, pad_conv3x3, pad_conv3x3_plain
 from vst_torch.models.faststyle import FastStyleNet
 from vst_torch.nn.conv import without_cudnn
+from vst_torch.probes import bisect_im2col, bisect_kernel_cost, bisect_mxu
 
 RADIUS = 4
 LEVELS = 4
 KERNEL_ATOL = 1e-5
 FLOW_ATOL_PX = 1e-3
 TCL_RTOL = 1e-4
-# H100 SXM peaks (NVIDIA data sheet, 700 W): HBM bytes/s, float32 (non-tensor-core) op/s
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_F32_OPS_PER_S = 67e12
+# pad_conv3x3 against its plain version: f32 sums of up to 9·128 terms with
+# |y| ~ 1 in another order; bf16 one rounding of the same f32 sum (1 ulp)
+CONV_F32_ATOL = 1e-4
+CONV_BF16_ATOL, CONV_BF16_RTOL = 1e-3, 2.0 ** -7
+# gemm_rate against its plain version, relative to max|y|: f32 sums of up to
+# 64·1152 terms in another order; bf16 one rounding of the f32 sum
+GEMM_TOL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -7}
+DTYPES = (torch.float32, torch.bfloat16)
+KERNEL_SOURCES = ("corr_lookup", "pad_conv3x3", "gemm_rate")
 # f32 operations per lookup output: level scale and offset (2 per axis), floor
 # fractions and complements (4), 4 corner weights, 4 products, 3 sums
 OPS_PER_OUTPUT = 17
@@ -165,10 +195,13 @@ def seeded_style_net(dev, seed=0):
 
 def phase_build():
     t0 = time.perf_counter()
-    log = corr_lookup_module.build()
+    logs = _nvcc.build_many(KERNEL_SOURCES)  # one nvcc per source, all at once
     seconds = time.perf_counter() - t0
-    ptxas = [line.strip() for line in log.splitlines()
-             if "registers" in line or "spill" in line]
+    for module in (corr_lookup_module, pad_conv3x3_module, gemm_rate_module):
+        module.build()
+    ptxas = {name: [line.strip() for line in log.splitlines()
+                    if "registers" in line or "spill" in line]
+             for name, log in logs.items()}
     emit({"phase": "build", "seconds": seconds, "ptxas": ptxas})
 
 
@@ -331,7 +364,7 @@ def phase_main_path(dev):
         tcl2_ms = time_ms(lambda: tcl2(frames[5:6], frames[4:5], frames[0:1], style), 3, 1)
         del frames
 
-    corr_lookup.launches = 0
+    reset_counts()
     t0 = time.perf_counter()
     res = evaluate_sintel_faststyle(style_net, sd, [video], lambda a, b: raft(a, b),
                                     styles=(0, 1, 2), device=dev)
@@ -349,6 +382,150 @@ def phase_main_path(dev):
     return launches
 
 
+def reset_counts() -> None:
+    """Every kernel's launch count to 0, just before a path is driven."""
+    corr_lookup.launches = 0
+    pad_conv3x3.launches.clear()
+    gemm_rate.launches.clear()
+
+
+def require_launches(counter, keys, path):
+    missing = [k for k in keys if counter[k] <= 0]
+    if missing:
+        raise AssertionError(f"{path} never launched its kernel for {missing}")
+    return {k: counter[k] for k in keys}
+
+
+# (name, (N, H, W, C)): the trunk shape, a ragged one, the CPU tests' shapes
+CONV_SHAPES = (("trunk", (1, 109, 256, 128)), ("ragged", (2, 13, 37, 64)),
+               ("cpu_test", (1, 20, 16, 8)), ("cpu_test_ragged", (1, 21, 16, 8)))
+
+
+def check_pad_conv3x3(dev, modes, shapes):
+    """Each mode and dtype against its plain version on the same inputs;
+    returns {(mode, dtype name): max |Δ|} over ``shapes``."""
+    errs = {}
+    for mode in modes:
+        for dtype in DTYPES:
+            worst = 0.0
+            for seed, (name, shape) in enumerate(shapes):
+                x, w = bisect_im2col.trunk_inputs(dtype, dev, seed, shape)
+                with torch.no_grad():
+                    got = pad_conv3x3(x, w, mode).float()
+                    want = pad_conv3x3_plain(x, w, mode).float()
+                torch.cuda.synchronize()
+                diff = (got - want).abs()
+                if dtype == torch.bfloat16:
+                    ok = bool((diff <= CONV_BF16_ATOL + CONV_BF16_RTOL * want.abs()).all())
+                else:
+                    ok = bool((diff <= CONV_F32_ATOL).all())
+                err = diff.max().item()
+                if not ok or not math.isfinite(err):
+                    raise AssertionError(f"pad_conv3x3 {mode} {dtype} vs plain at {name} "
+                                         f"{shape}: max |Δ| {err}")
+                worst = max(worst, err)
+            errs[(mode, dtype_name(dtype))] = worst
+    return errs
+
+
+def phase_trunk_conv(dev):
+    errs = check_pad_conv3x3(dev, ("full",), CONV_SHAPES)
+    reset_counts()
+    records = bisect_im2col.run(dev)
+    keys = [("full", dtype_name(d)) for d in DTYPES]
+    launches = require_launches(pad_conv3x3.launches, keys, "bisect_im2col")
+    emit({"phase": "trunk_conv", "shapes": dict(CONV_SHAPES),
+          "max_abs_err": {"/".join(k): v for k, v in errs.items()},
+          "probe": records, "launches": {"/".join(k): v for k, v in launches.items()}})
+    return {k: {"max_abs_err": errs[k], "launches": launches[k], **rec}
+            for k, rec in zip(keys, records)}
+
+
+def phase_kernel_cost(dev):
+    errs = check_pad_conv3x3(dev, MODES, CONV_SHAPES[:2])
+    reset_counts()
+    records = bisect_kernel_cost.run(dev)
+    keys = [(m, dtype_name(d)) for d in DTYPES for m in MODES]
+    launches = require_launches(pad_conv3x3.launches, keys, "bisect_kernel_cost")
+    emit({"phase": "kernel_cost", "max_abs_err": {"/".join(k): v for k, v in errs.items()},
+          "probe": records, "launches": {"/".join(k): v for k, v in launches.items()}})
+    by_dtype = {rec["dtype"]: rec["modes"] for rec in records}
+    return {(m, dt): {"max_abs_err": errs[(m, dt)], "launches": launches[(m, dt)],
+                      **by_dtype[dt][m]} for m, dt in keys}
+
+
+def phase_gemm_rate(dev):
+    errs = {}
+    for dtype in DTYPES:
+        worst = 0.0
+        for K, N in bisect_mxu.SHAPES:
+            x, w = bisect_mxu.gemm_inputs(K, N, dtype, dev)
+            with torch.no_grad():
+                got = gemm_rate(x, w, bisect_mxu.REPS).float()
+                want = gemm_rate_plain(x, w, bisect_mxu.REPS).float()
+            torch.cuda.synchronize()
+            err = (got - want).abs().max().item()
+            limit = GEMM_TOL[dtype] * want.abs().max().item()
+            if not err <= limit:
+                raise AssertionError(f"gemm_rate {dtype} vs plain at K={K}, N={N}: "
+                                     f"max |Δ| {err} > {limit}")
+            worst = max(worst, err)
+        errs[dtype_name(dtype)] = worst
+    reset_counts()
+    records = bisect_mxu.run(dev)
+    keys = [dtype_name(d) for d in DTYPES]
+    launches = require_launches(gemm_rate.launches, keys, "bisect_mxu")
+    emit({"phase": "gemm_rate", "max_abs_err": errs, "probe": records, "launches": launches})
+    square = {rec["dtype"]: rec for rec in records if rec["K"] == rec["N"] == 128}
+    return {dt: {"max_abs_err": errs[dt], "launches": launches[dt], **square[dt]} for dt in keys}
+
+
+def phase_bench(dev):
+    # the benchmark's program on one Sintel-sized frame: finite, in [0, 1]
+    frame = torch.from_numpy(synthetic_clip(1, (bench.H, bench.W)).transpose(0, 3, 1, 2).copy())
+    for dtype in DTYPES:
+        net = bench.seeded_net(dtype, dev)
+        with torch.no_grad():
+            out = bench.make_stylize(net, torch.zeros((), dtype=torch.long, device=dev))(
+                frame.to(dev, dtype)).float()
+        if (out.shape != (1, 3, bench.H, bench.W) or not torch.isfinite(out).all()
+                or out.min() < 0 or out.max() > 1):
+            raise AssertionError(f"bench stylize {dtype}: output not finite in [0, 1] of shape")
+
+    reset_counts()
+    report = bench.run(bench.CONFIGS[:3], dev)
+    with tempfile.TemporaryDirectory() as out_dir:
+        cli_main(["bench-raft", "--variants", "f32", "--iters", "2", "--out-dir", out_dir])
+        with open(f"{out_dir}/raft_timing.json") as f:
+            raft = json.load(f)
+    launches = corr_lookup.launches
+    if launches <= 0:
+        raise AssertionError("bench-raft never launched the corr_lookup kernel")
+    timed = [*report["paths_ms"].values(), *report["paths_ms_fused"].values(),
+             *(v for k, v in raft.items() if k.startswith("pair_ms_"))]
+    if not all(math.isfinite(t) and t > 0 for t in timed):
+        raise AssertionError(f"bench times not finite and positive: {timed}")
+    emit({"phase": "bench", "bench": report, "bench_raft": raft,
+          "corr_lookup_launches": launches})
+
+
+def kernel_entries(name, source, replaces, measured):
+    """The kernels line's entries of one kernel, one per variant."""
+    return [{"name": f"{name}_{variant}", "route": "cuda", "source": source,
+             "replaces": replaces, "launches": m["launches"], "max_abs_err": m["max_abs_err"],
+             "ms": m["ms"], "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
+             "bound_by": m["bound_by"], "library_ms": m.get("library_ms")}
+            for variant, m in measured.items()]
+
+
+def per_conv(measured):
+    """A probe record's per-conv times under the kernels line's names."""
+    return {"launches": measured["launches"], "max_abs_err": measured["max_abs_err"],
+            "ms": measured["ms_per_conv"], "plain_ms": measured["plain_ms_per_conv"],
+            "bound_ms": measured["bound_ms"], "bound_by": measured["bound_by"],
+            "library_ms": measured.get("library_ms_per_conv")}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing runs on the CPU", file=sys.stderr)
@@ -364,16 +541,29 @@ def main() -> int:
     phase_stylize(dev)
     phase_raft(dev)
     launches = phase_main_path(dev)
+    trunk = phase_trunk_conv(dev)
+    cost = phase_kernel_cost(dev)
+    gemm = phase_gemm_rate(dev)
+    phase_bench(dev)
 
     smi = subprocess.run(["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], check=True, capture_output=True, text=True)
     print(smi.stdout.strip(), flush=True)
-    emit({"kernels": [{
-        "name": "corr_lookup", "route": "cuda", "source": "vst_torch/csrc/corr_lookup.cu",
-        "replaces": "vst/kernels/pallas_corr.py:87", "launches": launches,
-        "max_abs_err": max_err, "ms": timing["kernel_ms"], "plain_ms": timing["plain_ms"],
-        "bound_ms": timing["bound_ms"], "bound_by": timing["bound_by"],
-        "library_ms": timing["library_ms"]}]})
+    conv_source = "vst_torch/csrc/pad_conv3x3.cu"
+    emit({"kernels": [
+        {"name": "corr_lookup", "route": "cuda", "source": "vst_torch/csrc/corr_lookup.cu",
+         "replaces": "vst/kernels/pallas_corr.py:87", "launches": launches,
+         "max_abs_err": max_err, "ms": timing["kernel_ms"], "plain_ms": timing["plain_ms"],
+         "bound_ms": timing["bound_ms"], "bound_by": timing["bound_by"],
+         "library_ms": timing["library_ms"]},
+        *kernel_entries("pad_conv3x3", conv_source, "scripts/bisect_im2col.py:20",
+                        {f"full_{dt}": per_conv(m) for (_, dt), m in trunk.items()}),
+        *kernel_entries("pad_conv3x3", conv_source, "scripts/bisect_kernel_cost.py:15",
+                        {f"{mode}_{dt}": per_conv(m) for (mode, dt), m in cost.items()
+                         if mode != "full"}),
+        *kernel_entries("gemm_rate", "vst_torch/csrc/gemm_rate.cu", "scripts/bisect_mxu.py:15",
+                        {f"{dt}_K128_N128": m for dt, m in gemm.items()}),
+    ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0

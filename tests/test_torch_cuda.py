@@ -1,16 +1,21 @@
 """The Hopper kernels on the card: corr_lookup against its plain version and
-RAFT through it against RAFT with the plain lookup. Marked ``cuda``; they
-skip where there is no CUDA device. On a machine with an H100:
+RAFT through it against RAFT with the plain lookup; pad_conv3x3 in its four
+modes and gemm_rate against their plain versions. Marked ``cuda``; they skip
+where there is no CUDA device. On a machine with an H100 (``--noconftest``:
+the suite's conftest needs jax, which these tests do not):
 
-    python -m pytest tests/test_torch_cuda.py -q -m cuda
+    python -m pytest --noconftest tests/test_torch_cuda.py -q -m cuda
 """
 
+import numpy as np
 import pytest
 import torch
 
 from vst_torch.flow.corr import build_pyramid, lookup_pyramid
 from vst_torch.flow.raft import RAFT, coords_grid
 from vst_torch.kernels.corr_lookup import corr_lookup
+from vst_torch.kernels.gemm_rate import gemm_rate, gemm_rate_plain
+from vst_torch.kernels.pad_conv3x3 import MODES, dtype_name, pad_conv3x3, pad_conv3x3_plain
 
 pytestmark = pytest.mark.cuda
 
@@ -50,3 +55,46 @@ def test_raft_through_the_kernel_matches_plain_lookup(dev):
         _, up_fast = fast(i1, i2)
         _, up_plain = plain(i1, i2)
     torch.testing.assert_close(up_fast, up_plain, atol=1e-3, rtol=0)
+
+
+def _randn(shape, seed, dev, dtype, scale=1.0):
+    x = np.random.RandomState(seed).randn(*shape).astype(np.float32) * scale
+    return torch.from_numpy(x).to(dev, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=dtype_name)
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("shape", [(1, 109, 256, 128), (2, 13, 37, 64), (1, 21, 16, 8)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_pad_conv3x3_matches_plain(dev, shape, mode, dtype):
+    """f32: sums of up to 1152 terms with |y| ~ 1 in another order, ≤ 1e-4;
+    bf16: the same f32 sum rounded once, ≤ 1e-3 + 2⁻⁷·|y| (1 ulp)."""
+    x = _randn(shape, 0, dev, dtype)
+    w = _randn((3, 3, shape[3], shape[3]), 1, dev, dtype, 0.02)
+    before = pad_conv3x3.launches[(mode, dtype_name(dtype))]
+    got = pad_conv3x3(x, w, mode)
+    torch.cuda.synchronize()
+    assert pad_conv3x3.launches[(mode, dtype_name(dtype))] == before + 1
+    want = pad_conv3x3_plain(x, w, mode)
+    assert got.dtype == dtype and got.shape == want.shape
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=0)
+    else:
+        torch.testing.assert_close(got.float(), want.float(), atol=1e-3, rtol=2.0 ** -7)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 2.0 ** -7)],
+                         ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("K,N", [(128, 128), (1152, 128), (256, 256), (24, 40)])
+def test_gemm_rate_matches_plain(dev, dtype, tol, K, N):
+    """Tolerance relative to max|y|: f32 sums of up to 64·1152 terms in
+    another order; bf16 one rounding of the f32 sum."""
+    x = _randn((4096, K), 0, dev, dtype)
+    w = _randn((K, N), 1, dev, dtype)
+    before = gemm_rate.launches[dtype_name(dtype)]
+    got = gemm_rate(x, w, 64)
+    torch.cuda.synchronize()
+    assert gemm_rate.launches[dtype_name(dtype)] == before + 1
+    want = gemm_rate_plain(x, w, 64)
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= tol * want.float().abs().max().item()

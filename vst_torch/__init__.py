@@ -5,10 +5,11 @@ package ``vst`` keeps NHWC. Modules keep the torch reference's
 ``state_dict`` key names, so ``vst_torch.convert`` and vst's
 ``*_params_from_torch`` carry weights both ways.
 
-Entry points run on CUDA unless the caller passes ``device="cpu"``. The one
-hand-written kernel (RAFT's correlation-window lookup,
-``vst_torch/csrc/corr_lookup.cu``) launches for CUDA tensors; for CPU
-tensors its wrapper computes the plain PyTorch version.
+Entry points run on CUDA unless the caller passes ``device="cpu"``. The
+hand-written Hopper kernels (``vst_torch/csrc/``: RAFT's correlation-window
+lookup, the reflect-pad 3×3 trunk conv in four cost modes, the in-kernel
+matrix-product rate probe) launch for CUDA tensors; for CPU tensors their
+wrappers (``vst_torch/kernels/``) compute the plain PyTorch versions.
 
 This package imports torch, numpy and scipy only — never jax, flax or vst.
 """

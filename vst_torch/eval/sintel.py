@@ -18,7 +18,6 @@ timer has no sync) and with the host clock on the CPU.
 from __future__ import annotations
 
 import os
-import time
 from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
@@ -26,6 +25,7 @@ import torch
 
 from vst_torch import set_f32_precision
 from vst_torch.core.metrics import aggregate_means, save_json
+from vst_torch.core.timing import chain_ms
 from vst_torch.ops.flowtools import fbc_mask
 from vst_torch.ops.image import InputPadder
 from vst_torch.ops.sample import warp
@@ -124,25 +124,6 @@ def make_tcl_program(stylize_fn: Callable, raft_apply: Callable,
         return stylize_fn(img, style)
 
     return tcl, stylize, tcl_gt, tcl2
-
-
-def chain_ms(fn, x, iters: int) -> float:
-    """Mean ms per call of ``iters`` chained calls x = fn(x), on x's device."""
-    if x.is_cuda:
-        torch.cuda.synchronize(x.device)
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(iters):
-            x = fn(x)
-        end.record()
-        end.synchronize()
-        return start.elapsed_time(end) / iters
-    t0 = time.perf_counter()
-    for _ in range(iters):
-        x = fn(x)
-    float(x.sum())
-    return (time.perf_counter() - t0) / iters * 1000.0
 
 
 @torch.no_grad()

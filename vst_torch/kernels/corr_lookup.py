@@ -17,37 +17,19 @@ plain version's autograd, on whichever device the inputs lie.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
-from pathlib import Path
 from typing import Sequence
 
 import torch
 
 from vst_torch.flow.corr import lookup_pyramid
+from vst_torch.kernels import _nvcc
 
-_PKG = Path(__file__).resolve().parents[1]
-SOURCE = _PKG / "csrc" / "corr_lookup.cu"
-BUILD_DIR = _PKG / "_build"
 MAX_LEVELS = 4
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
-
-_loaded: dict = {}
-
-
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    path = os.path.join(cuda_home, "bin", "nvcc")
-    if not os.path.exists(path):
-        raise RuntimeError("nvcc not found: the corr_lookup kernel cannot be built")
-    return path
+_ENTRY_POINTS = {"corr_lookup_launch": (
+    [ctypes.c_void_p] * 4
+    + [ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int), ctypes.c_int,
+       ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
+       ctypes.c_int, ctypes.c_void_p])}
 
 
 def build() -> str:
@@ -56,36 +38,7 @@ def build() -> str:
     Returns nvcc's report (registers, spills) from this process's build, or
     an empty string when the library was already built or loaded.
     """
-    if "lib" in _loaded:
-        return ""
-    src = SOURCE.read_bytes()
-    tag = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    so = BUILD_DIR / f"libcorr_lookup_{tag}.so"
-    log = ""
-    if not so.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        try:
-            proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, str(SOURCE)],
-                                  capture_output=True, text=True)
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-            os.replace(tmp, so)
-        finally:
-            if os.path.exists(tmp):
-                os.remove(tmp)
-        log = proc.stdout + proc.stderr
-    lib = ctypes.CDLL(str(so))
-    fn = lib.corr_lookup_launch
-    fn.argtypes = ([ctypes.c_void_p] * 4
-                   + [ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int),
-                      ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-                      ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
-                      ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    _loaded["lib"] = lib
-    return log
+    return _nvcc.load("corr_lookup", _ENTRY_POINTS)[1]
 
 
 def _check(pyramid: Sequence[torch.Tensor], coords: torch.Tensor, radius: int) -> None:
@@ -113,7 +66,7 @@ def _check(pyramid: Sequence[torch.Tensor], coords: torch.Tensor, radius: int) -
 
 
 def _launch(pyramid: Sequence[torch.Tensor], coords: torch.Tensor, radius: int) -> torch.Tensor:
-    build()
+    lib, _ = _nvcc.load("corr_lookup", _ENTRY_POINTS)
     B, _, H, W = coords.shape
     n = 2 * radius + 1
     out = torch.empty((B, H, W, len(pyramid) * n * n), dtype=torch.float32,
@@ -123,7 +76,7 @@ def _launch(pyramid: Sequence[torch.Tensor], coords: torch.Tensor, radius: int) 
     widths = (ctypes.c_int * MAX_LEVELS)(*[lvl.shape[3] for lvl in pyramid])
     with torch.cuda.device(coords.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = _loaded["lib"].corr_lookup_launch(
+        err = lib.corr_lookup_launch(
             *ptrs, heights, widths, len(pyramid), coords.data_ptr(), out.data_ptr(),
             B * H * W, H * W, radius, stream)
     if err != 0:

@@ -6,11 +6,23 @@ import torch
 import torch.nn.functional as F
 
 
+# CUDA's reflection pad indexes in 32 bits and refuses larger tensors
+MAX_32BIT_NUMEL = 2 ** 31 - 1
+
+
 def reflect_pad(x: torch.Tensor, pad: int) -> torch.Tensor:
-    """ReflectionPad2d (reference ``methods/learning-based/network.py:101-103``)."""
+    """ReflectionPad2d (reference ``methods/learning-based/network.py:101-103``).
+    A batch whose padded size passes 32-bit indexing (FastStyleNet's decoder
+    at batch 128 × 436×1024) is padded in batch chunks that fit."""
     if pad == 0:
         return x
-    return F.pad(x, (pad, pad, pad, pad), mode="reflect")
+    n, c, h, w = x.shape
+    per_sample = c * (h + 2 * pad) * (w + 2 * pad)
+    if n * per_sample <= MAX_32BIT_NUMEL or n == 1:
+        return F.pad(x, (pad, pad, pad, pad), mode="reflect")
+    chunk = max(1, MAX_32BIT_NUMEL // per_sample)
+    return torch.cat([F.pad(part, (pad, pad, pad, pad), mode="reflect")
+                      for part in x.split(chunk)], 0)
 
 
 def replicate_pad(x: torch.Tensor, pad) -> torch.Tensor:
