@@ -26,10 +26,14 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
    vst_torch.probes.bisect_im2col: ms/conv over a 10-conv chain, plain,
    cuDNN and bound.
 7. kernel_cost: the four modes against their plain versions at the trunk
-   and ragged shapes, then the probe vst_torch.probes.bisect_kernel_cost.
+   and ragged shapes, then the probe vst_torch.probes.bisect_kernel_cost,
+   each mode beside one library call that computes it.
 8. gemm_rate: the kernel against its plain version at every (K, N) of the
    sweep (f32 ≤ 1e-5·max|y|, bf16 ≤ 2⁻⁷·max|y|), then the probe
-   vst_torch.probes.bisect_mxu: ms, TF/s, cuBLAS ×64 and bound.
+   vst_torch.probes.bisect_mxu: ms, TF/s, bound, one cuBLAS call of depth
+   64·K (library_ms) and 64 × cuBLAS (library_x64_ms); the kernels line
+   lists K = N = 128 and K = 1152, N = 128, each with its own max |Δ| and
+   the launches of its timing.
 9. bench: vst_torch.bench on f32_b1, bf16_b1 and bf16_b8 (eager chain and
    CUDA-graph chain), and `vst_torch.cli bench-raft` on its f32 variant.
 
@@ -455,9 +459,8 @@ def phase_kernel_cost(dev):
 
 
 def phase_gemm_rate(dev):
-    errs = {}
+    errs = {}  # max |Δ| per (dtype name, K, N)
     for dtype in DTYPES:
-        worst = 0.0
         for K, N in bisect_mxu.SHAPES:
             x, w = bisect_mxu.gemm_inputs(K, N, dtype, dev)
             with torch.no_grad():
@@ -469,15 +472,20 @@ def phase_gemm_rate(dev):
             if not err <= limit:
                 raise AssertionError(f"gemm_rate {dtype} vs plain at K={K}, N={N}: "
                                      f"max |Δ| {err} > {limit}")
-            worst = max(worst, err)
-        errs[dtype_name(dtype)] = worst
+            errs[(dtype_name(dtype), K, N)] = err
     reset_counts()
     records = bisect_mxu.run(dev)
     keys = [dtype_name(d) for d in DTYPES]
     launches = require_launches(gemm_rate.launches, keys, "bisect_mxu")
-    emit({"phase": "gemm_rate", "max_abs_err": errs, "probe": records, "launches": launches})
-    square = {rec["dtype"]: rec for rec in records if rec["K"] == rec["N"] == 128}
-    return {dt: {"max_abs_err": errs[dt], "launches": launches[dt], **square[dt]} for dt in keys}
+    emit({"phase": "gemm_rate", "probe": records, "launches": launches,
+          "max_abs_err": {f"{dt}_K{K}_N{N}": e for (dt, K, N), e in errs.items()}})
+    # the kernels line's shapes, the square one and the deepest K, each with
+    # its own error and the launches its timing made in the probe's run
+    listed = {f"{rec['dtype']}_K{rec['K']}_N{rec['N']}": {
+                  **rec, "max_abs_err": errs[(rec["dtype"], rec["K"], rec["N"])]}
+              for rec in records if (rec["K"], rec["N"]) in ((128, 128), (1152, 128))}
+    require_launches({k: m["launches"] for k, m in listed.items()}, listed, "bisect_mxu")
+    return listed
 
 
 def phase_bench(dev):
@@ -514,7 +522,8 @@ def kernel_entries(name, source, replaces, measured):
     return [{"name": f"{name}_{variant}", "route": "cuda", "source": source,
              "replaces": replaces, "launches": m["launches"], "max_abs_err": m["max_abs_err"],
              "ms": m["ms"], "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
-             "bound_by": m["bound_by"], "library_ms": m.get("library_ms")}
+             "bound_by": m["bound_by"], "library_ms": m.get("library_ms"),
+             **({"library_x64_ms": m["library_x64_ms"]} if "library_x64_ms" in m else {})}
             for variant, m in measured.items()]
 
 
@@ -562,7 +571,7 @@ def main() -> int:
                         {f"{mode}_{dt}": per_conv(m) for (mode, dt), m in cost.items()
                          if mode != "full"}),
         *kernel_entries("gemm_rate", "vst_torch/csrc/gemm_rate.cu", "scripts/bisect_mxu.py:15",
-                        {f"{dt}_K128_N128": m for dt, m in gemm.items()}),
+                        gemm),
     ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

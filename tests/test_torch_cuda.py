@@ -16,6 +16,7 @@ from vst_torch.flow.raft import RAFT, coords_grid
 from vst_torch.kernels.corr_lookup import corr_lookup
 from vst_torch.kernels.gemm_rate import gemm_rate, gemm_rate_plain
 from vst_torch.kernels.pad_conv3x3 import MODES, dtype_name, pad_conv3x3, pad_conv3x3_plain
+from vst_torch.probes.bisect_mxu import SHAPES as GEMM_SHAPES
 
 pytestmark = pytest.mark.cuda
 
@@ -96,5 +97,44 @@ def test_gemm_rate_matches_plain(dev, dtype, tol, K, N):
     torch.cuda.synchronize()
     assert gemm_rate.launches[dtype_name(dtype)] == before + 1
     want = gemm_rate_plain(x, w, 64)
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= tol * want.float().abs().max().item()
+
+
+@pytest.mark.parametrize("mode", ["full", "mxu_only"])
+@pytest.mark.parametrize("shape,cout", [((1, 40, 70, 64), 128), ((1, 40, 70, 128), 64),
+                                        ((2, 13, 37, 64), 8), ((3, 9, 40, 32), 32),
+                                        ((1, 2, 37, 64), 64), ((2, 2, 2, 16), 136)],
+                         ids=lambda v: "x".join(map(str, v)) if isinstance(v, tuple) else str(v))
+def test_pad_conv3x3_bf16_wgmma_shapes(dev, shape, cout, mode):
+    """The bf16 wgmma path at C_in ≠ C_out, C_out = 8, C_out past one
+    128-channel tile, batch 3 and H = 2: one bf16 rounding of the f32 sum,
+    ≤ 1e-3 + 2⁻⁷·|y|."""
+    x = _randn(shape, 2, dev, torch.bfloat16)
+    w = _randn((3, 3, shape[3], cout), 3, dev, torch.bfloat16, 0.05)
+    before = pad_conv3x3.launches[(mode, "bfloat16")]
+    got = pad_conv3x3(x, w, mode)
+    torch.cuda.synchronize()
+    assert pad_conv3x3.launches[(mode, "bfloat16")] == before + 1
+    want = pad_conv3x3_plain(x, w, mode)
+    assert got.shape == want.shape == (*shape[:3], cout)
+    torch.testing.assert_close(got.float(), want.float(), atol=1e-3, rtol=2.0 ** -7)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 2.0 ** -7)],
+                         ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("M,K,N,reps", [(4096, K, N, 64) for K, N in GEMM_SHAPES]
+                         + [(4095, 256, 128, 64), (100, 1152, 128, 5), (4096, 128, 128, 0),
+                            (4096, 512, 512, 1), (64, 2048, 64, 3)])
+def test_gemm_rate_sweep_and_edges(dev, dtype, tol, M, K, N, reps):
+    """Every (K, N) of the probe's sweep, ragged M, reps 0 and 1, and K
+    past what shared memory holds (both operands streamed). Tolerance
+    relative to max|y| as above; reps = 0 gives exact zeros."""
+    x = _randn((M, K), 4, dev, dtype)
+    w = _randn((K, N), 5, dev, dtype)
+    got = gemm_rate(x, w, reps)
+    torch.cuda.synchronize()
+    want = gemm_rate_plain(x, w, reps)
+    assert got.shape == (M, N) and got.dtype == dtype
     err = (got.float() - want.float()).abs().max().item()
     assert err <= tol * want.float().abs().max().item()

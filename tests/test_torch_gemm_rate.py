@@ -7,7 +7,10 @@ wrap ``pl.pallas_call`` with ``interpret=True``; nothing under
 
 w is scaled by 1/√K, so |y| ≲ 20. Tolerances: float32 1e-4 absolute (4
 reps of K ≤ 256 products in another order); bfloat16 one bf16 ulp (rtol
-2⁻⁷): both sides sum in float32 and round once. Also the build helper's refusal without nvcc.
+2⁻⁷): both sides sum in float32 and round once. Also the probe's one-call
+cuBLAS yardstick (one product of depth reps·K) against the plain version,
+the build helper's refusal without nvcc, and its build tag, which follows
+the shared headers ``csrc/*.cuh`` as well as the source.
 """
 
 import functools
@@ -22,6 +25,7 @@ from jax.experimental import pallas as pl
 
 from vst_torch.kernels import _nvcc
 from vst_torch.kernels.gemm_rate import gemm_rate, gemm_rate_plain
+from vst_torch.probes.bisect_mxu import library_operands
 
 ROOT = Path(__file__).resolve().parents[1]
 DTYPES = {"float32": (jnp.float32, torch.float32), "bfloat16": (jnp.bfloat16, torch.bfloat16)}
@@ -92,3 +96,36 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
         _nvcc.nvcc()
     assert _nvcc.library_path("gemm_rate").parent == _nvcc.BUILD_DIR
     assert _nvcc.library_path("gemm_rate") != _nvcc.library_path("pad_conv3x3")
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("K,N,reps", [(128, 128, 4), (24, 40, 3), (64, 16, 1)])
+def test_one_call_yardstick_matches_plain(K, N, reps, dtype):
+    """x repeated along K times w repeated along K is Σ_{reps} x @ w in one
+    product: float32 within 1e-4 absolute (|y| ≲ 20, another order of the
+    same sum); bfloat16 within one bf16 ulp (both round one float32 sum)."""
+    tdtype = DTYPES[dtype][1]
+    x, w = (torch.from_numpy(a).to(tdtype) for a in _inputs(K, N))
+    xs, ws = library_operands(x, w, reps)
+    assert xs.shape == (M, reps * K) and ws.shape == (reps * K, N)
+    got = torch.matmul(xs, ws)
+    want = gemm_rate_plain(x, w, reps)
+    assert got.dtype == want.dtype == tdtype
+    if dtype == "float32":
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=0)
+    else:
+        torch.testing.assert_close(got.float(), want.float(), atol=1e-6, rtol=2.0 ** -7)
+
+
+def test_build_tag_follows_shared_headers(monkeypatch, tmp_path):
+    (tmp_path / "k.cu").write_text('#include "common.cuh"\n')
+    header = tmp_path / "common.cuh"
+    header.write_text("// v1\n")
+    monkeypatch.setattr(_nvcc, "CSRC", tmp_path)
+    first = _nvcc.library_path("k")
+    assert _nvcc.library_path("k") == first  # same sources, same tag
+    header.write_text("// v2\n")
+    second = _nvcc.library_path("k")
+    assert second != first  # an edited header builds anew
+    (tmp_path / "k.cu").write_text('#include "common.cuh"\n// edited\n')
+    assert _nvcc.library_path("k") not in (first, second)  # so does an edited source

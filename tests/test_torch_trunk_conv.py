@@ -11,6 +11,12 @@ Tolerances: float32 1e-4 absolute (sums of 72 terms, |y| ~ 2, in another
 order); bfloat16 one bf16 ulp (rtol 2⁻⁷): both sides sum in float32 and
 round once. ztrick rounds each tap's product to the input dtype, a TPU
 layout trick, so it is held in float32 only.
+
+The probes' library yardsticks (``bisect_kernel_cost.library_mode``, one
+PyTorch call after a reflect pad per mode) against the plain version, in
+float32: ``dma_only`` exactly; the others within 1e-4 absolute (the same
+sums of up to 72 terms, |y| ~ 2, in another order; ``mxu_only`` sums w
+over the taps first).
 """
 
 import functools
@@ -24,6 +30,7 @@ import jax.numpy as jnp
 from jax.experimental import pallas as pl
 
 from vst_torch.kernels.pad_conv3x3 import MODES, pad_conv3x3, pad_conv3x3_plain
+from vst_torch.probes.bisect_kernel_cost import library_arg, library_mode
 
 ROOT = Path(__file__).resolve().parents[1]
 DTYPES = {"float32": (jnp.float32, torch.float32), "bfloat16": (jnp.bfloat16, torch.bfloat16)}
@@ -116,3 +123,13 @@ def test_wrapper_checks_its_inputs():
         pad_conv3x3(x[:, :1].contiguous(), w)
     with pytest.raises(ValueError):
         pad_conv3x3(x.transpose(1, 2), w)
+
+
+@pytest.mark.parametrize("shape", SHAPES, ids=lambda s: f"H{s[0]}")
+@pytest.mark.parametrize("mode", MODES)
+def test_library_yardstick_matches_plain(shape, mode):
+    x, w = (torch.from_numpy(a) for a in _inputs(*shape, seed=3))
+    got = library_mode(x, library_arg(w, mode), mode)
+    want = pad_conv3x3_plain(x, w, mode)
+    assert got.shape == want.shape
+    torch.testing.assert_close(got, want, atol=0 if mode == "dma_only" else 1e-4, rtol=0)

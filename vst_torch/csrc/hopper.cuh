@@ -1,0 +1,188 @@
+// PTX helpers shared by the Hopper (sm_90a) kernels of vst_torch/csrc/:
+// 16-byte cp.async with zero fill, mbarriers, 2-D TMA loads, ldmatrix, and
+// the warpgroup matrix product (wgmma) with its shared-memory descriptor;
+// and the host's one-time raise of a kernel's shared-memory limit.
+//
+// Shared-memory operands of wgmma use the 128-byte swizzle: a tile is stored
+// as 128-byte rows, 8 rows (1024 bytes, 1024-aligned) to a swizzle atom, and
+// the 16-byte group g of row r sits at group g ^ (r % 8). TMA with
+// CU_TENSOR_MAP_SWIZZLE_128B writes this layout; a kernel that fills shared
+// memory itself applies swizzle128().
+//   K-major operand (K contiguous, 64 bf16 a row): descriptor start at the
+//     row block plus 32 bytes per 16-deep K step, SBO = 1024 (next 8 rows).
+//   MN-major operand (M or N contiguous, 64 bf16 a row, one row per k):
+//     start plus 2048 bytes (16 rows) per K step, SBO = 1024 (next 8 k),
+//     LBO = the byte distance between 64-wide M or N atoms.
+
+#pragma once
+
+#include <cstdint>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+namespace vst {
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// byte offset of 16-byte group `group` of 128-byte row `row`, swizzled
+__device__ __forceinline__ uint32_t swizzle128(int row, int group) {
+  return row * 128 + ((group ^ (row & 7)) << 4);
+}
+
+// 16 bytes global -> shared; src_bytes == 0 reads nothing and writes zeros
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(dst), "l"(src), "r"(src_bytes) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// this thread's earlier shared-memory writes (st.shared, cp.async) made
+// visible to the async proxy that wgmma and TMA read through
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(bar), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_fence_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(bar) : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+// wait until the barrier's phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred P1;\n"
+      "LAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
+      "@P1 bra DONE;\n"
+      "bra LAB_WAIT;\n"
+      "DONE:\n"
+      "}\n" :: "r"(bar), "r"(parity) : "memory");
+}
+
+// one box of a 2-D tensor map (coordinates innermost first) into shared
+// memory; completion is counted in bytes on `bar`
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const void* map, uint32_t bar, int c0,
+                                            int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4}], [%2];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// four 8x8 b16 matrices; lane l gives the address of row l % 8 of matrix l / 8
+__device__ __forceinline__ void ldmatrix_x4(uint32_t addr, uint32_t (&r)[4]) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr) : "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
+// keeps the compiler from moving reads or writes of the accumulators across
+// the wgmma fence / wait around it
+template <int R>
+__device__ __forceinline__ void fence_operands(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
+}
+
+// shared-memory matrix descriptor, 128-byte swizzle
+__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo_bytes,
+                                               uint32_t sbo_bytes) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)((lbo_bytes >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((sbo_bytes >> 4) & 0x3FFF) << 32) | (1ull << 62);
+}
+
+#define VST_D8(i)                                                                        \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), "+f"(d[i + 5]), \
+      "+f"(d[i + 6]), "+f"(d[i + 7])
+#define VST_R32                                                                   \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, " \
+  "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+#define VST_R64                                                                        \
+  VST_R32 ", %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, " \
+          "%47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+
+// d (64 x 64, f32) += A (64 x 16, K-major, shared) @ B (16 x 64, N-major,
+// shared); scale-d is 1, so d must start at zero
+__device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {" VST_R32 "}, %32, %33, p, 1, 1, 0, 1;\n"
+      "}\n"
+      : VST_D8(0), VST_D8(8), VST_D8(16), VST_D8(24)
+      : "l"(a), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {" VST_R64 "}, %64, %65, p, 1, 1, 0, 1;\n"
+      "}\n"
+      : VST_D8(0), VST_D8(8), VST_D8(16), VST_D8(24), VST_D8(32), VST_D8(40), VST_D8(48),
+        VST_D8(56)
+      : "l"(a), "l"(b), "r"(1));
+}
+
+// the same with A (64 x 16) from registers: warp w of the warpgroup holds rows
+// 16w .. 16w + 15 in the mma.m16n8k16 A-fragment layout (ldmatrix_x4 order)
+__device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64], const uint32_t (&a)[4],
+                                                    uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {" VST_R64 "}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n"
+      "}\n"
+      : VST_D8(0), VST_D8(8), VST_D8(16), VST_D8(24), VST_D8(32), VST_D8(40), VST_D8(48),
+        VST_D8(56)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+#undef VST_D8
+#undef VST_R32
+#undef VST_R64
+
+// two floats rounded to bf16, the first in the low half (the lower address)
+__device__ __forceinline__ unsigned pack_bf16x2(float a, float b) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  return *reinterpret_cast<const unsigned*>(&h);
+}
+
+// Raises `kernel`'s dynamic shared memory limit to `bytes` on its first
+// launch only, so later launches skip the call: a launch above 48 KB is
+// refused without it.
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, int bytes, bool& done) {
+  if (done) return cudaSuccess;
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  done = err == cudaSuccess;
+  return err;
+}
+
+}  // namespace vst

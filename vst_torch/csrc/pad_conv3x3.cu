@@ -13,21 +13,33 @@
 // C_out) HWIO, all f32 or all bf16; sums in f32, y cast once at the end.
 //
 // Design: an implicit GEMM, M = pixels, K = 9*C_in, N = C_out. A CTA owns 4
-// output rows x 32 output columns x 64 output channels. For each chunk of
-// input channels it stages the (4+2) x (32+2) input halo in shared memory,
-// resolving the reflection in the load index (row -1 -> 1, row H -> H-2,
-// the same for columns): no padded copy is written to device memory, the
-// counterpart of the TPU kernel's reflected-row DMAs and column concat.
-// Rows and columns past the ragged edge (H = 109 = 27*4 + 1) are computed
-// from clamped indices and masked at the store.
-//   f32 (TF32 off): SIMT FMA. The halo is staged column-contiguous; a thread
-//     owns 8 pixels of one row x 4 channels and reads the 10 halo columns
-//     its 3 dx taps need once per (dy, channel).
-//   bf16, modes 0 and 1: tensor cores through wmma 16x16x16 bf16 -> f32.
-//     The halo is staged channel-contiguous, 16 channels a chunk, so the
-//     16 pixels x 16 channels of one tap are a row-major A tile read in
-//     place (a dx shift moves the tile by 32 bytes, which keeps wmma's
-//     alignment); each warp owns 32 pixels x 32 channels.
+// output rows x 32 output columns. For each chunk of input channels it
+// stages the (4+2) x (32+2) input halo in shared memory, resolving the
+// reflection in the load index (row -1 -> 1, row H -> H-2, the same for
+// columns): no padded copy is written to device memory, the counterpart of
+// the TPU kernel's reflected-row DMAs and column concat. Rows and columns
+// past the ragged edge (H = 109 = 27*4 + 1) are computed from clamped
+// indices and masked at the store.
+//   f32 (TF32 off): SIMT FMA, 64 output channels a CTA. The halo is staged
+//     column-contiguous; a thread owns 8 pixels of one row x 4 channels and
+//     reads the 10 halo columns its 3 dx taps need once per (dy, channel).
+//   bf16, modes 0 and 1: warpgroup wgmma m64n128k16, A from registers, B
+//     from shared memory. A CTA owns all output channels of its 128 pixels
+//     (C_out > 128 in further CTAs of 128), so each halo chunk is staged
+//     once: 2 consumer warpgroups of 64 pixels, 224 CTAs at the trunk
+//     shape, 2 resident on an SM (87 KB of shared memory each), so all 224
+//     run in one wave on 132 SMs. Per 16 input channels a stage holds the
+//     halo, channel-contiguous (32 bytes a pixel, the two 16-byte halves
+//     swapped on every other group of 4 pixels so that ldmatrix's 8 rows
+//     hit 8 bank groups), and the 9 taps' 16 x 128 weights in the
+//     128-byte-swizzled N-major layout wgmma reads. Each tap's A fragment
+//     is one ldmatrix.x4 from the halo at its (dy, dx) offset (any 16-byte
+//     row address, so a shift costs nothing; mxu_only loads the unshifted
+//     tile once for all 9 taps). Stages are filled by 16-byte cp.async
+//     whose source address resolves the reflection and the ragged-edge
+//     clamp, with channels past C_in and C_out zero-filled, in a ring of 2:
+//     one barrier per chunk, and the copies of chunk c+1 run under the
+//     products of chunk c.
 //   bf16, modes 2 and 3: the SIMT path, converting to f32 at the load.
 //
 // Bound: operations. At the trunk shape (1, 109, 256, 128 -> 128) one conv
@@ -37,7 +49,8 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -50,7 +63,15 @@ constexpr int kHaloRows = kTileRows + 2;
 constexpr int kHaloCols = kTileCols + 2;
 constexpr int kThreads = 256;
 constexpr int kSimtChunk = 8;   // input channels staged per step, SIMT path
-constexpr int kMmaChunk = 16;   // input channels staged per step, wmma path
+
+constexpr int kMmaN = 128;       // output channels per CTA, wgmma path
+constexpr int kMmaThreads = 256; // two warpgroups
+constexpr int kMmaChunk = 16;    // input channels per stage (one wgmma K step)
+constexpr int kMmaStages = 2;
+constexpr int kHaloPixels = kHaloRows * kHaloCols;
+constexpr int kWeightBytes = 9 * 2 * kMmaChunk * 128;  // [tap][64-channel atom][k][128 B]
+constexpr int kStageBytes = (kWeightBytes + kHaloPixels * 32 + 1023) / 1024 * 1024;
+constexpr int kMmaSmem = kMmaStages * kStageBytes + 1024;  // + alignment to 1024
 
 struct Geometry {
   int height, width, cin, cout;  // cout: channels of y (and of w for modes 0, 1)
@@ -87,14 +108,9 @@ __device__ __forceinline__ void store4(float* p, const float v[4]) {
   *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
 }
 
-// two floats rounded to bf16, the first in the low half (the lower address)
-__device__ __forceinline__ unsigned pack_bf16x2(float a, float b) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
-  return *reinterpret_cast<const unsigned*>(&h);
-}
-
 __device__ __forceinline__ void store4(__nv_bfloat16* p, const float v[4]) {
-  *reinterpret_cast<uint2*>(p) = make_uint2(pack_bf16x2(v[0], v[1]), pack_bf16x2(v[2], v[3]));
+  *reinterpret_cast<uint2*>(p) =
+      make_uint2(vst::pack_bf16x2(v[0], v[1]), vst::pack_bf16x2(v[2], v[3]));
 }
 
 template <typename T, int MODE>
@@ -217,108 +233,119 @@ pad_conv3x3_simt(const T* __restrict__ x, const T* __restrict__ w, T* __restrict
   }
 }
 
-// bf16 modes 0 and 1 on the tensor cores. 8 warps: warp w owns tile row
-// w / 2, all 32 columns (two 16-pixel A tiles) and channels 32 * (w % 2)
-// .. + 31 (two 16-channel B tiles).
-template <int MODE>
-__global__ void __launch_bounds__(kThreads)
-pad_conv3x3_wmma(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ w,
-                 __nv_bfloat16* __restrict__ y, Geometry g) {
-  using namespace nvcuda;
-  constexpr int kHaloBytes = kHaloRows * kHaloCols * kMmaChunk * 2;  // 6528, a multiple of 32
-  constexpr int kWeightBytes = 9 * kMmaChunk * kTileN * 2;
-  constexpr int kStageBytes = kTileRows * kTileCols * kTileN * 4;
-  constexpr int kSmemBytes = kHaloBytes + kWeightBytes > kStageBytes
-                                 ? kHaloBytes + kWeightBytes : kStageBytes;
-  __shared__ __align__(128) unsigned char smem[kSmemBytes];
-  __nv_bfloat16* halo = reinterpret_cast<__nv_bfloat16*>(smem);  // [row][col][16 channels]
-  __nv_bfloat16* wt = reinterpret_cast<__nv_bfloat16*>(smem + kHaloBytes);  // [tap][k][n]
-  float* stage = reinterpret_cast<float*>(smem);  // the epilogue's [pixel][n], after the loop
+// bf16 modes 0 and 1 on wgmma. Warpgroup wg owns tile pixels 64 wg .. + 63
+// (tile rows 2 wg, 2 wg + 1); warp w of it holds 16 of them, one tile row,
+// columns 16 (w % 2) .. + 15. d: the 64 x 128 f32 accumulator fragment.
+__device__ __forceinline__ void stage_chunk(uint32_t stage, const __nv_bfloat16* __restrict__ xb,
+                                            const __nv_bfloat16* __restrict__ w, const Geometry& g,
+                                            int r0, int c0, int n0, int k0) {
+  const uint32_t halo = stage + kWeightBytes;
+  for (int i = threadIdx.x; i < kHaloPixels * 2; i += kMmaThreads) {
+    const int pix = i / 2, h = i % 2;
+    const int gr = reflect(r0 - 1 + pix / kHaloCols, g.height);
+    const int gc = reflect(c0 - 1 + pix % kHaloCols, g.width);
+    const int k = k0 + 8 * h;
+    const bool ok = k < g.cin;
+    const __nv_bfloat16* src = ok ? xb + ((size_t)gr * g.width + gc) * g.cin + k : xb;
+    vst::cp_async16(halo + pix * 32 + ((h ^ ((pix >> 2) & 1)) << 4), src, ok ? 16 : 0);
+  }
+  // weights: tap, k, 16 groups of 8 output channels (two 64-channel atoms)
+  for (int i = threadIdx.x; i < 9 * kMmaChunk * 16; i += kMmaThreads) {
+    const int tap = i / (kMmaChunk * 16);
+    const int k = (i / 16) % kMmaChunk;
+    const int grp = i % 16;
+    const bool ok = k0 + k < g.cin && n0 + 8 * grp < g.cout;
+    const __nv_bfloat16* src = ok ? w + ((size_t)tap * g.cin + k0 + k) * g.cout + n0 + 8 * grp : w;
+    vst::cp_async16(stage + tap * 4096 + (grp / 8) * 2048 + vst::swizzle128(k, grp % 8), src,
+                    ok ? 16 : 0);
+  }
+}
 
+template <int MODE>
+__global__ void __launch_bounds__(kMmaThreads, 2)
+pad_conv3x3_wgmma(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ w,
+                  __nv_bfloat16* __restrict__ y, Geometry g) {
+  extern __shared__ unsigned char conv_smem[];
+  const uint32_t base = (vst::smem_addr(conv_smem) + 1023) & ~1023u;
   const int r0 = (blockIdx.x / g.col_tiles) * kTileRows;
   const int c0 = (blockIdx.x % g.col_tiles) * kTileCols;
-  const int n0 = blockIdx.y * kTileN;
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int wrow = warp / 2;
-  const int wn = (warp % 2) * 32;
+  const int n0 = blockIdx.y * kMmaN;
+  const int wg = threadIdx.x / 128;
+  const int warp = (threadIdx.x / 32) % 4;
+  const int lane = threadIdx.x % 32;
   const __nv_bfloat16* xb = x + (size_t)blockIdx.z * g.height * g.width * g.cin;
+  const int chunks = (g.cin + kMmaChunk - 1) / kMmaChunk;
 
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
+  // this lane's ldmatrix row: pixel (lane % 8) + 8 ((lane / 8) % 2) of the
+  // warp's 16, channel half lane / 16; as a halo pixel at tap (0, 0)
+  const int tile_row = 2 * wg + warp / 2;
+  const int lane_pix = tile_row * kHaloCols + 16 * (warp % 2) + lane % 8 + 8 * ((lane / 8) % 2);
+  const int lane_half = lane / 16;
 
-  for (int k0 = 0; k0 < g.cin; k0 += kMmaChunk) {
-    // halo: two 8-channel vectors a pixel; channels past C_in are zero
-    for (int i = tid; i < kHaloRows * kHaloCols * 2; i += kThreads) {
-      const int pix = i / 2;
-      const int k = k0 + (i % 2) * 8;
-      const int gr = reflect(r0 - 1 + pix / kHaloCols, g.height);
-      const int gc = reflect(c0 - 1 + pix % kHaloCols, g.width);
-      uint4 v = make_uint4(0, 0, 0, 0);
-      if (k < g.cin) v = *reinterpret_cast<const uint4*>(xb + ((size_t)gr * g.width + gc) * g.cin + k);
-      *reinterpret_cast<uint4*>(halo + pix * kMmaChunk + (i % 2) * 8) = v;
-    }
-    constexpr int kGroups = kTileN / 8;
-    for (int i = tid; i < 9 * kMmaChunk * kGroups; i += kThreads) {
-      const int tap = i / (kMmaChunk * kGroups);
-      const int k = (i / kGroups) % kMmaChunk;
-      const int j = (i % kGroups) * 8;
-      uint4 v = make_uint4(0, 0, 0, 0);
-      if (k0 + k < g.cin && n0 + j < g.cout) {
-        v = *reinterpret_cast<const uint4*>(w + ((size_t)tap * g.cin + k0 + k) * g.cout + n0 + j);
-      }
-      *reinterpret_cast<uint4*>(wt + (tap * kMmaChunk + k) * kTileN + j) = v;
-    }
+  float d[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) d[i] = 0.f;
+  vst::fence_operands(d);
+
+  stage_chunk(base, xb, w, g, r0, c0, n0, 0);
+  vst::cp_async_commit();
+  for (int c = 0; c < chunks; ++c) {
+    vst::wgmma_wait<0>();       // chunk c-1's products are done with their stage
+    vst::cp_async_wait<0>();    // chunk c has landed
+    vst::fence_proxy_async();   // and is visible to wgmma
     __syncthreads();
-
-#pragma unroll
-    for (int tap = 0; tap < 9; ++tap) {
-      const int dy = MODE == kFull ? tap / 3 : 0;
-      const int dx = MODE == kFull ? tap % 3 : 0;
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> b[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        wmma::load_matrix_sync(a[i], halo + ((wrow + dy) * kHaloCols + 16 * i + dx) * kMmaChunk,
-                               kMmaChunk);
-      }
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        wmma::load_matrix_sync(b[j], wt + tap * kMmaChunk * kTileN + wn + 16 * j, kTileN);
-      }
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], a[i], b[j], acc[i][j]);
+    if (c + 1 < chunks) {
+      stage_chunk(base + ((c + 1) % kMmaStages) * kStageBytes, xb, w, g, r0, c0, n0,
+                  (c + 1) * kMmaChunk);
     }
-    __syncthreads();
+    vst::cp_async_commit();
+
+    const uint32_t stage = base + (c % kMmaStages) * kStageBytes;
+    const uint32_t halo = stage + kWeightBytes;
+    constexpr int kLoads = MODE == kFull ? 9 : 1;
+    uint32_t a[kLoads][4];
+#pragma unroll
+    for (int t = 0; t < kLoads; ++t) {
+      const int hp = lane_pix + (t / 3) * kHaloCols + t % 3;
+      vst::ldmatrix_x4(halo + hp * 32 + ((lane_half ^ ((hp >> 2) & 1)) << 4), a[t]);
+    }
+    vst::wgmma_fence();
+#pragma unroll
+    for (int t = 0; t < 9; ++t) {
+      const uint64_t b = vst::desc_sw128(stage + t * 4096, 2048, 1024);
+      vst::wgmma_m64n128k16_rs(d, a[MODE == kFull ? t : 0], b);
+    }
+    vst::wgmma_commit();
   }
+  vst::wgmma_wait<0>();
+  vst::fence_operands(d);
 
+  // d[4 j + 2 h + e]: tile pixel 64 wg + 16 warp + lane / 4 + 8 h, channel 8 j + 2 (lane % 4) + e
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      wmma::store_matrix_sync(stage + (wrow * kTileCols + 16 * i) * kTileN + wn + 16 * j,
-                              acc[i][j], kTileN, wmma::mem_row_major);
-    }
-  __syncthreads();
-
-  constexpr int kGroups = kTileN / 8;
-  for (int i = tid; i < kTileRows * kTileCols * kGroups; i += kThreads) {
-    const int p = i / kGroups;
-    const int j = (i % kGroups) * 8;
+  for (int h = 0; h < 2; ++h) {
+    const int p = 64 * wg + 16 * warp + lane / 4 + 8 * h;
     const int r = r0 + p / kTileCols;
-    const int c = c0 + p % kTileCols;
-    if (r >= g.height || c >= g.width || n0 + j >= g.cout) continue;
-    const float* s = stage + p * kTileN + j;
-    *reinterpret_cast<uint4*>(y + (((size_t)blockIdx.z * g.height + r) * g.width + c) * g.cout +
-                              n0 + j) =
-        make_uint4(pack_bf16x2(s[0], s[1]), pack_bf16x2(s[2], s[3]), pack_bf16x2(s[4], s[5]),
-                   pack_bf16x2(s[6], s[7]));
+    const int col = c0 + p % kTileCols;
+    if (r >= g.height || col >= g.width) continue;
+    __nv_bfloat16* yp = y + (((size_t)blockIdx.z * g.height + r) * g.width + col) * g.cout;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const int n = n0 + 8 * j + 2 * (lane % 4);
+      if (n < g.cout)
+        *reinterpret_cast<unsigned*>(yp + n) = vst::pack_bf16x2(d[4 * j + 2 * h], d[4 * j + 2 * h + 1]);
+    }
   }
+}
+
+template <int MODE>
+int launch_wgmma(const __nv_bfloat16* x, const __nv_bfloat16* w, __nv_bfloat16* y, const Geometry& g,
+                 int row_tiles, int batch, cudaStream_t s) {
+  static bool smem_allowed = false;
+  const cudaError_t err = vst::allow_smem(pad_conv3x3_wgmma<MODE>, kMmaSmem, smem_allowed);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(g.col_tiles * row_tiles, (g.cout + kMmaN - 1) / kMmaN, batch);
+  pad_conv3x3_wgmma<MODE><<<grid, kMmaThreads, kMmaSmem, s>>>(x, w, y, g);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -360,11 +387,9 @@ extern "C" int pad_conv3x3_launch(const void* x, const void* w, void* y, int bat
       pad_conv3x3_simt<float, kDmaOnly><<<grid, kThreads, 0, s>>>(xf, wf, yf, g);
       break;
     case 4 + kFull:
-      pad_conv3x3_wmma<kFull><<<grid, kThreads, 0, s>>>(xh, wh, yh, g);
-      break;
+      return launch_wgmma<kFull>(xh, wh, yh, g, row_tiles, batch, s);
     case 4 + kMxuOnly:
-      pad_conv3x3_wmma<kMxuOnly><<<grid, kThreads, 0, s>>>(xh, wh, yh, g);
-      break;
+      return launch_wgmma<kMxuOnly>(xh, wh, yh, g, row_tiles, batch, s);
     case 4 + kShiftOnly:
       pad_conv3x3_simt<__nv_bfloat16, kShiftOnly><<<grid, kThreads, 0, s>>>(xh, wh, yh, g);
       break;

@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc``
 for ``sm_90a`` into ``vst_torch/_build/lib<name>_<tag>.so`` (listed in
-``.gitignore``), where ``tag`` hashes the source and the flags: an edited
-source builds anew, an unchanged one is loaded as it is. ``build_many``
+``.gitignore``), where ``tag`` hashes the source, the shared headers
+``csrc/*.cuh`` and the flags: an edited source or header builds anew, an
+unchanged one is loaded as it is. ``build_many``
 starts one ``nvcc`` per missing library, all at once, and waits for them;
 ``load`` builds what is missing, loads the library and declares its entry
 points, each returning a ``cudaError_t``. A failed build raises.
@@ -41,9 +42,13 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where ``csrc/<name>.cu`` is built, tagged by source and flags."""
-    src = (CSRC / f"{name}.cu").read_bytes()
-    tag = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    """Where ``csrc/<name>.cu`` is built, tagged by its source, every shared
+    header ``csrc/*.cuh`` (a source may include any of them) and the flags."""
+    digest = hashlib.sha1((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.name.encode() + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    tag = digest.hexdigest()[:12]
     return BUILD_DIR / f"lib{name}_{tag}.so"
 
 
