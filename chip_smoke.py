@@ -8,11 +8,13 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
 1. build: compile the three kernels (vst_torch/csrc/{corr_lookup,
    pad_conv3x3,gemm_rate}.cu), one nvcc each, all at once, into
    vst_torch/_build/; ptxas registers and spills per library.
-2. kernel: corr_lookup against its plain version lookup_pyramid at the
-   Sintel tcl2 shape, a ragged shape and the CPU-test shape (≤ 1e-5
-   absolute); its time beside the plain version's, the library yardstick's
-   (the reference CorrBlock's F.grid_sample per level) and its bound; the
-   autograd.Function's gradient against the plain version's.
+2. kernel: corr_lookup against its plain version lookup_pyramid, bit for
+   bit (max |Δ| = 0), at the Sintel tcl2 shape, a ragged shape, the
+   CPU-test shape, radius 3, 1 and 2 levels, and windows all outside their
+   maps; its time beside the plain version's, the library yardstick's (the
+   reference CorrBlock's F.grid_sample per level), its bound and the bytes
+   of the 32-byte sectors its windows touch; the autograd.Function's
+   gradient against the plain version's (≤ 1e-5).
 3. stylize: FastStyleNet (3 styles) at 1×3×436×1024, chained DT.
 4. raft: full RAFT, 20 iterations, at 4×3×432×1024 through the kernel;
    a breakdown by part (and the update block on cuDNN, which RAFT avoids);
@@ -20,9 +22,10 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
 5. main_path: evaluate_sintel_faststyle on a seeded synthetic 8-frame clip
    at 432×1024, styles (0, 1, 2), RAFT through the kernel; first the same
    harness at 64×96 against the plain lookup (TCL ≤ 1e-4 relative).
-6. trunk_conv: pad_conv3x3 (mode full) against its plain version at the
-   trunk shape 1×109×256×128, a ragged 2×13×37×64 and the CPU-test shapes,
-   f32 (≤ 1e-4 absolute) and bf16 (≤ 1e-3 + 2⁻⁷·|plain|); then the probe
+6. trunk_conv: pad_conv3x3 (modes full and mxu_only) against its plain
+   version at the trunk shape 1×109×256×128, a ragged 2×13×37×64, the
+   CPU-test shapes, C_in ≠ C_out, C_out = 8 and 136, batch 3 and H = 2, f32
+   (≤ 1e-4 absolute) and bf16 (≤ 1e-3 + 2⁻⁷·|plain|); then the probe
    vst_torch.probes.bisect_im2col: ms/conv over a 10-conv chain, plain,
    cuDNN and bound.
 7. kernel_cost: the four modes against their plain versions at the trunk
@@ -78,7 +81,8 @@ from vst_torch.probes import bisect_im2col, bisect_kernel_cost, bisect_mxu
 
 RADIUS = 4
 LEVELS = 4
-KERNEL_ATOL = 1e-5
+KERNEL_ERR = 0.0  # corr_lookup against lookup_pyramid: same operation order, bit for bit
+GRAD_ATOL = 1e-5
 FLOW_ATOL_PX = 1e-3
 TCL_RTOL = 1e-4
 # pad_conv3x3 against its plain version: f32 sums of up to 9·128 terms with
@@ -157,6 +161,30 @@ def lookup_bound(pyramid, coords, r):
     return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms else "operations"), nbytes
 
 
+def lookup_sector_bytes(pyramid, coords, r):
+    """Bytes of the 32-byte sectors this run's windows touch: each in-bounds
+    row of every query's (2r+2)² patch, rounded out to whole sectors (each
+    level's tensor starts on a 256-byte boundary), plus coords and output as
+    lookup_bound counts them. A window row of 10 floats spans 2–3 sectors."""
+    B, _, H, W = coords.shape
+    q = B * H * W
+    c = coords.permute(0, 2, 3, 1).reshape(q, 2).double()
+    qidx = torch.arange(q, device=c.device, dtype=torch.float64)
+    sectors = 0
+    for i, corr in enumerate(pyramid):
+        h, w = corr.shape[-2:]
+        lo = torch.floor(c / 2 ** i) - r
+        x0 = lo[:, 0].clamp_min(0)
+        x1 = (lo[:, 0] + 2 * r + 1).clamp_max(w - 1)
+        rows = lo[:, 1:2] + torch.arange(2 * r + 2, device=c.device, dtype=torch.float64)
+        ok = (rows >= 0) & (rows <= h - 1) & (x1 >= x0)[:, None]
+        first = (qidx[:, None] * h * w + rows * w + x0[:, None]) * 4
+        last = (qidx[:, None] * h * w + rows * w + x1[:, None]) * 4 + 3
+        n = torch.floor(last / 32) - torch.floor(first / 32) + 1
+        sectors += int((n * ok).sum().item())
+    return sectors * 32 + q * 2 * 4 + q * len(pyramid) * (2 * r + 1) ** 2 * 4
+
+
 def texture(rng, h, w):
     """A smooth seeded colour texture in [0, 1], (h, w, 3)."""
     ys, xs = np.mgrid[0:h, 0:w].astype(np.float32)
@@ -209,39 +237,55 @@ def phase_build():
     emit({"phase": "build", "seconds": seconds, "ptxas": ptxas})
 
 
+# (name, B, H, W, C, radius, levels, coords): the Sintel tcl2 shape, a ragged
+# one, the CPU tests' shape, RAFT small's radius, 1 and 2 levels, and flows
+# that put every window outside its map ("outside", all zeros)
+LOOKUP_SHAPES = (("sintel_tcl2", 4, 54, 128, 256, 4, 4, "flow"),
+                 ("ragged_55", 4, 55, 128, 256, 4, 4, "flow"),
+                 ("cpu_test", 1, 8, 16, 32, 4, 4, "flow"),
+                 ("radius_3", 4, 54, 128, 256, 3, 4, "flow"),
+                 ("levels_1", 2, 55, 128, 64, 4, 1, "flow"),
+                 ("levels_2", 2, 55, 128, 64, 3, 2, "flow"),
+                 ("outside", 2, 54, 128, 64, 4, 4, "outside"))
+
+
 def phase_kernel(dev):
-    shapes = [("sintel_tcl2", 4, 54, 128, 256), ("ragged_55", 4, 55, 128, 256),
-              ("cpu_test", 1, 8, 16, 32)]
     record = {"phase": "kernel", "shapes": {}}
     worst = 0.0
-    for seed, (name, B, H, W, C) in enumerate(shapes):
+    for seed, (name, B, H, W, C, r, levels, where) in enumerate(LOOKUP_SHAPES):
         g = torch.Generator(device=dev).manual_seed(seed)
         f1 = torch.randn(B, C, H, W, generator=g, device=dev)
         f2 = torch.randn(B, C, H, W, generator=g, device=dev)
-        pyramid = build_pyramid(f1, f2, LEVELS)
-        # flows of up to tens of pixels, so windows leave every level's map
-        flow = 8.0 * torch.randn(B, 2, H, W, generator=g, device=dev)
+        pyramid = build_pyramid(f1, f2, levels)
+        if where == "flow":  # flows of up to tens of pixels: windows leave every level's map
+            flow = 8.0 * torch.randn(B, 2, H, W, generator=g, device=dev)
+        else:  # past every map's right and bottom edge, at every level
+            flow = torch.full((B, 2, H, W), 1000.0, device=dev)
         coords = (coords_grid(B, H, W, device=dev) + flow).contiguous()
         with torch.no_grad():
-            got = corr_lookup(pyramid, coords, RADIUS)
-            want = lookup_pyramid(pyramid, coords, RADIUS)
+            got = corr_lookup(pyramid, coords, r)
+            want = lookup_pyramid(pyramid, coords, r)
         torch.cuda.synchronize()
         err = (got - want).abs().max().item()
-        entry = {"B": B, "H": H, "W": W, "C": C, "max_abs_err": err}
-        if err > KERNEL_ATOL or not math.isfinite(err):
-            raise AssertionError(f"corr_lookup vs plain at {name}: {err} > {KERNEL_ATOL}")
+        entry = {"B": B, "H": H, "W": W, "C": C, "radius": r, "levels": levels,
+                 "max_abs_err": err}
+        if err != KERNEL_ERR or not math.isfinite(err):
+            raise AssertionError(f"corr_lookup vs plain at {name}: {err} != {KERNEL_ERR}")
+        if where == "outside" and want.abs().max().item() != 0:
+            raise AssertionError("corr_lookup 'outside' shape: a window met its map")
         worst = max(worst, err)
         if name == "sintel_tcl2":
             with torch.no_grad():
                 # the yardstick divides by (h-1): defined once every level has 2+ rows
-                lib = corrblock_grid_sample(pyramid, coords, RADIUS)
+                lib = corrblock_grid_sample(pyramid, coords, r)
                 entry["library_max_abs_err"] = (lib - want).abs().max().item()
-                entry["kernel_ms"] = time_ms(lambda: corr_lookup(pyramid, coords, RADIUS), 20)
-                entry["plain_ms"] = time_ms(lambda: lookup_pyramid(pyramid, coords, RADIUS), 5)
-                entry["library_ms"] = time_ms(
-                    lambda: corrblock_grid_sample(pyramid, coords, RADIUS), 5)
+                entry["kernel_ms"] = time_ms(lambda: corr_lookup(pyramid, coords, r), 20)
+                entry["plain_ms"] = time_ms(lambda: lookup_pyramid(pyramid, coords, r), 5)
+                entry["library_ms"] = time_ms(lambda: corrblock_grid_sample(pyramid, coords, r), 5)
             entry["bound_ms"], entry["bound_by"], entry["bound_bytes"] = lookup_bound(
-                pyramid, coords, RADIUS)
+                pyramid, coords, r)
+            entry["sector_bytes"] = lookup_sector_bytes(pyramid, coords, r)
+            entry["sector_ms"] = entry["sector_bytes"] / PEAK_BYTES_PER_S * 1e3
             timing = entry
         record["shapes"][name] = entry
         del pyramid, f1, f2, got, want
@@ -262,8 +306,8 @@ def phase_kernel(dev):
 
     grad_err = max((a - b).abs().max().item()
                    for a, b in zip(grads(corr_lookup), grads(lookup_pyramid)))
-    if grad_err > KERNEL_ATOL:
-        raise AssertionError(f"corr_lookup gradient vs plain: {grad_err} > {KERNEL_ATOL}")
+    if grad_err > GRAD_ATOL:
+        raise AssertionError(f"corr_lookup gradient vs plain: {grad_err} > {GRAD_ATOL}")
     record["grad_max_abs_err"] = grad_err
     emit(record)
     return worst, timing
@@ -400,9 +444,14 @@ def require_launches(counter, keys, path):
     return {k: counter[k] for k in keys}
 
 
-# (name, (N, H, W, C)): the trunk shape, a ragged one, the CPU tests' shapes
-CONV_SHAPES = (("trunk", (1, 109, 256, 128)), ("ragged", (2, 13, 37, 64)),
-               ("cpu_test", (1, 20, 16, 8)), ("cpu_test_ragged", (1, 21, 16, 8)))
+# (name, (N, H, W, C_in), C_out): the trunk shape, a ragged one, the CPU
+# tests' shapes; then C_in ≠ C_out both ways, C_out = 8, batch 3, H = 2 and
+# C_out past one 128-channel tile
+CONV_SHAPES = (("trunk", (1, 109, 256, 128), 128), ("ragged", (2, 13, 37, 64), 64),
+               ("cpu_test", (1, 20, 16, 8), 8), ("cpu_test_ragged", (1, 21, 16, 8), 8),
+               ("cin64_cout128", (1, 40, 70, 64), 128), ("cin128_cout64", (1, 40, 70, 128), 64),
+               ("cout8", (2, 13, 37, 64), 8), ("batch3", (3, 9, 40, 32), 32),
+               ("h2", (1, 2, 37, 64), 64), ("cout136", (2, 2, 2, 16), 136))
 
 
 def check_pad_conv3x3(dev, modes, shapes):
@@ -412,8 +461,8 @@ def check_pad_conv3x3(dev, modes, shapes):
     for mode in modes:
         for dtype in DTYPES:
             worst = 0.0
-            for seed, (name, shape) in enumerate(shapes):
-                x, w = bisect_im2col.trunk_inputs(dtype, dev, seed, shape)
+            for seed, (name, shape, cout) in enumerate(shapes):
+                x, w = bisect_im2col.trunk_inputs(dtype, dev, seed, shape, cout)
                 with torch.no_grad():
                     got = pad_conv3x3(x, w, mode).float()
                     want = pad_conv3x3_plain(x, w, mode).float()
@@ -426,19 +475,20 @@ def check_pad_conv3x3(dev, modes, shapes):
                 err = diff.max().item()
                 if not ok or not math.isfinite(err):
                     raise AssertionError(f"pad_conv3x3 {mode} {dtype} vs plain at {name} "
-                                         f"{shape}: max |Δ| {err}")
+                                         f"{shape} -> {cout}: max |Δ| {err}")
                 worst = max(worst, err)
             errs[(mode, dtype_name(dtype))] = worst
     return errs
 
 
 def phase_trunk_conv(dev):
-    errs = check_pad_conv3x3(dev, ("full",), CONV_SHAPES)
+    errs = check_pad_conv3x3(dev, ("full", "mxu_only"), CONV_SHAPES)
     reset_counts()
     records = bisect_im2col.run(dev)
     keys = [("full", dtype_name(d)) for d in DTYPES]
     launches = require_launches(pad_conv3x3.launches, keys, "bisect_im2col")
-    emit({"phase": "trunk_conv", "shapes": dict(CONV_SHAPES),
+    emit({"phase": "trunk_conv",
+          "shapes": {name: [list(shape), cout] for name, shape, cout in CONV_SHAPES},
           "max_abs_err": {"/".join(k): v for k, v in errs.items()},
           "probe": records, "launches": {"/".join(k): v for k, v in launches.items()}})
     return {k: {"max_abs_err": errs[k], "launches": launches[k], **rec}

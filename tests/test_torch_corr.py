@@ -14,7 +14,7 @@ from vst.flow.corr import build_pyramid as jbuild_pyramid
 from vst.flow.corr import lookup_pyramid as jlookup_pyramid
 from vst.kernels.pallas_corr import pallas_lookup_pyramid
 from vst_torch.flow.corr import build_pyramid, lookup_pyramid
-from vst_torch.kernels.corr_lookup import corr_lookup
+from vst_torch.kernels.corr_lookup import check_radius, corr_lookup
 
 ATOL = 1e-5
 R = 4
@@ -104,3 +104,29 @@ def test_wrapper_rejects_bad_inputs():
         corr_lookup([t[:-1] for t in pyr], c, R)  # wrong number of queries
     with pytest.raises(ValueError):
         corr_lookup(list(pyr) * 2, c, R)  # more levels than the kernel takes
+
+
+@pytest.mark.parametrize("radius", [0, 1, 2, 3, 5])
+def test_wrapper_on_cpu_takes_any_radius(radius):
+    """The kernel is built for radius 3 and 4 only; on the CPU the wrapper
+    computes the plain version at every radius, launching nothing."""
+    f1, f2, coords = _case(seed=3)
+    pyr = _port_pyramid(f1, f2)
+    before = corr_lookup.launches
+    got = corr_lookup(pyr, _nchw(coords), radius)
+    assert corr_lookup.launches == before
+    assert got.shape == (1, 4 * (2 * radius + 1) ** 2, 8, 16)
+    np.testing.assert_array_equal(got.numpy(), lookup_pyramid(pyr, _nchw(coords), radius).numpy())
+
+
+@pytest.mark.parametrize("radius,device,ok", [
+    (3, "cuda", True), (4, "cuda", True), (2, "cuda", False), (5, "cuda", False),
+    (2, "cpu", True), (5, "cpu", True), (-1, "cpu", False), (2.5, "cpu", False)])
+def test_radius_rule(radius, device, ok):
+    """The wrapper's rule, checked without a tensor on the device: CUDA takes
+    the kernel's radii, the CPU any non-negative int."""
+    if ok:
+        check_radius(radius, torch.device(device))
+    else:
+        with pytest.raises(ValueError):
+            check_radius(radius, torch.device(device))

@@ -30,18 +30,51 @@ def dev():
     return torch.device("cuda", 0)
 
 
-@pytest.mark.parametrize("B,H,W,C", [(1, 8, 16, 32), (2, 55, 128, 64)])
-def test_kernel_matches_plain(dev, B, H, W, C):
+@pytest.mark.parametrize("B,H,W,C,radius,levels,shift", [
+    (1, 8, 16, 32, 4, 4, 0.0), (2, 55, 128, 64, 4, 4, 0.0), (2, 54, 128, 64, 3, 4, 0.0),
+    (2, 55, 128, 64, 4, 1, 0.0), (2, 55, 128, 64, 3, 2, 0.0), (2, 54, 128, 64, 4, 4, 1000.0)],
+    ids=["cpu_shape", "ragged", "radius3", "levels1", "levels2", "outside"])
+def test_kernel_matches_plain(dev, B, H, W, C, radius, levels, shift):
+    """Bit for bit (same operation order); ``outside`` shifts every window
+    past its map, so both give zeros."""
     g = torch.Generator(device=dev).manual_seed(0)
     pyr = build_pyramid(torch.randn(B, C, H, W, generator=g, device=dev),
-                        torch.randn(B, C, H, W, generator=g, device=dev), 4)
-    coords = (coords_grid(B, H, W, device=dev)
+                        torch.randn(B, C, H, W, generator=g, device=dev), levels)
+    coords = (coords_grid(B, H, W, device=dev) + shift
               + 8 * torch.randn(B, 2, H, W, generator=g, device=dev)).contiguous()
     before = corr_lookup.launches
-    got = corr_lookup(pyr, coords, 4)
+    got = corr_lookup(pyr, coords, radius)
     torch.cuda.synchronize()
     assert corr_lookup.launches == before + 1
-    torch.testing.assert_close(got, lookup_pyramid(pyr, coords, 4), atol=1e-5, rtol=0)
+    want = lookup_pyramid(pyr, coords, radius)
+    assert got.shape == (B, levels * (2 * radius + 1) ** 2, H, W)
+    torch.testing.assert_close(got, want, atol=0, rtol=0)
+    if shift:
+        assert want.abs().max().item() == 0
+
+
+def test_kernel_gradient_matches_plain(dev):
+    g = torch.Generator(device=dev).manual_seed(3)
+    f1 = torch.randn(1, 32, 8, 16, generator=g, device=dev)
+    f2 = torch.randn(1, 32, 8, 16, generator=g, device=dev)
+    coords0 = (coords_grid(1, 8, 16, device=dev)
+               + 5 * torch.randn(1, 2, 8, 16, generator=g, device=dev)).contiguous()
+    upstream = torch.randn(1, 324, 8, 16, generator=g, device=dev)
+
+    def grads(fn):
+        pyr = [t.detach().clone().requires_grad_() for t in build_pyramid(f1, f2, 4)]
+        coords = coords0.clone().requires_grad_()
+        (fn(pyr, coords, 4) * upstream).sum().backward()
+        return [coords.grad] + [t.grad for t in pyr]
+
+    for got, want in zip(grads(corr_lookup), grads(lookup_pyramid)):
+        torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
+
+
+def test_kernel_refuses_other_radii(dev):
+    pyr = build_pyramid(torch.randn(1, 8, 8, 16, device=dev), torch.randn(1, 8, 8, 16, device=dev))
+    with pytest.raises(ValueError):
+        corr_lookup(pyr, coords_grid(1, 8, 16, device=dev).contiguous(), 2)
 
 
 def test_raft_through_the_kernel_matches_plain_lookup(dev):
@@ -101,24 +134,29 @@ def test_gemm_rate_matches_plain(dev, dtype, tol, K, N):
     assert err <= tol * want.float().abs().max().item()
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=dtype_name)
 @pytest.mark.parametrize("mode", ["full", "mxu_only"])
 @pytest.mark.parametrize("shape,cout", [((1, 40, 70, 64), 128), ((1, 40, 70, 128), 64),
                                         ((2, 13, 37, 64), 8), ((3, 9, 40, 32), 32),
                                         ((1, 2, 37, 64), 64), ((2, 2, 2, 16), 136)],
                          ids=lambda v: "x".join(map(str, v)) if isinstance(v, tuple) else str(v))
-def test_pad_conv3x3_bf16_wgmma_shapes(dev, shape, cout, mode):
-    """The bf16 wgmma path at C_in ≠ C_out, C_out = 8, C_out past one
-    128-channel tile, batch 3 and H = 2: one bf16 rounding of the f32 sum,
-    ≤ 1e-3 + 2⁻⁷·|y|."""
-    x = _randn(shape, 2, dev, torch.bfloat16)
-    w = _randn((3, 3, shape[3], cout), 3, dev, torch.bfloat16, 0.05)
-    before = pad_conv3x3.launches[(mode, "bfloat16")]
+def test_pad_conv3x3_bf16_wgmma_shapes(dev, shape, cout, mode, dtype):
+    """The weighted modes' kernels (bf16 wgmma, f32 SIMT) at C_in ≠ C_out,
+    C_out = 8, C_out past one 128-channel tile, batch 3 and H = 2. f32: sums
+    of up to 1152 terms in another order, ≤ 1e-4; bf16: one rounding of the
+    f32 sum, ≤ 1e-3 + 2⁻⁷·|y|."""
+    x = _randn(shape, 2, dev, dtype)
+    w = _randn((3, 3, shape[3], cout), 3, dev, dtype, 0.05)
+    before = pad_conv3x3.launches[(mode, dtype_name(dtype))]
     got = pad_conv3x3(x, w, mode)
     torch.cuda.synchronize()
-    assert pad_conv3x3.launches[(mode, "bfloat16")] == before + 1
+    assert pad_conv3x3.launches[(mode, dtype_name(dtype))] == before + 1
     want = pad_conv3x3_plain(x, w, mode)
     assert got.shape == want.shape == (*shape[:3], cout)
-    torch.testing.assert_close(got.float(), want.float(), atol=1e-3, rtol=2.0 ** -7)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=0)
+    else:
+        torch.testing.assert_close(got.float(), want.float(), atol=1e-3, rtol=2.0 ** -7)
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 2.0 ** -7)],

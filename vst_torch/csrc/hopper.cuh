@@ -1,5 +1,6 @@
 // PTX helpers shared by the Hopper (sm_90a) kernels of vst_torch/csrc/:
-// 16-byte cp.async with zero fill, mbarriers, 2-D TMA loads, ldmatrix, and
+// 16-byte cp.async with zero fill and 4-byte cp.async, mbarriers, 2-D TMA
+// loads and 1-D bulk copies, ldmatrix, and
 // the warpgroup matrix product (wgmma) with its shared-memory descriptor;
 // and the host's one-time raise of a kernel's shared-memory limit.
 //
@@ -34,6 +35,12 @@ __device__ __forceinline__ uint32_t swizzle128(int row, int group) {
 // 16 bytes global -> shared; src_bytes == 0 reads nothing and writes zeros
 __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int src_bytes) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(dst), "l"(src), "r"(src_bytes) : "memory");
+}
+// 4 bytes global -> shared, through L1 (cp.async.cg takes only 16);
+// src_bytes == 0 reads nothing and writes zeros
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
                :: "r"(dst), "l"(src), "r"(src_bytes) : "memory");
 }
 __device__ __forceinline__ void cp_async_commit() {
@@ -85,6 +92,16 @@ __device__ __forceinline__ void tma_load_2d(uint32_t dst, const void* map, uint3
       " [%0], [%1, {%3, %4}], [%2];\n"
       :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
       : "memory");
+}
+
+// `bytes` (a multiple of 16, both addresses 16-byte aligned) global ->
+// shared by the TMA unit, without a tensor map; completion is counted in
+// bytes on `bar`
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      :: "r"(dst), "l"(src), "r"(bytes), "r"(bar) : "memory");
 }
 
 // four 8x8 b16 matrices; lane l gives the address of row l % 8 of matrix l / 8

@@ -12,21 +12,52 @@
 // x (N, H, W, C_in) and y (N, H, W, C_out) channels-last, w (3, 3, C_in,
 // C_out) HWIO, all f32 or all bf16; sums in f32, y cast once at the end.
 //
-// Design: an implicit GEMM, M = pixels, K = 9*C_in, N = C_out. A CTA owns 4
-// output rows x 32 output columns. For each chunk of input channels it
-// stages the (4+2) x (32+2) input halo in shared memory, resolving the
-// reflection in the load index (row -1 -> 1, row H -> H-2, the same for
-// columns): no padded copy is written to device memory, the counterpart of
-// the TPU kernel's reflected-row DMAs and column concat. Rows and columns
-// past the ragged edge (H = 109 = 27*4 + 1) are computed from clamped
-// indices and masked at the store.
-//   f32 (TF32 off): SIMT FMA, 64 output channels a CTA. The halo is staged
-//     column-contiguous; a thread owns 8 pixels of one row x 4 channels and
-//     reads the 10 halo columns its 3 dx taps need once per (dy, channel).
+// Design: an implicit GEMM, M = pixels, K = 9*C_in, N = C_out. A CTA owns a
+// tile of output rows x 32 output columns and stages, for each chunk of
+// input channels, the tile's input halo (2 rows and 2 columns more) in shared
+// memory, resolving the reflection in the load's source address (row -1 ->
+// 1, row H -> H-2, the same for columns): no padded copy is written to device
+// memory, the counterpart of the TPU kernel's reflected-row DMAs and column
+// concat. Rows and columns past the ragged edge (H = 109) are computed from
+// clamped indices and masked at the store.
+//   f32, modes 0 and 1 (TF32 off, SIMT FMA, f32 sums). Bound: operations,
+//     2 * 27904 * 9 * 128^2 = 8.23 GFLOP a conv at the trunk shape, 0.123 ms
+//     at the 67 TFLOP/s f32 rate. The first version of this kernel ran at
+//     49 % of that rate (0.250 ms): each 8-channel chunk staged by
+//     synchronous loads between two barriers, 32 accumulators a thread (10
+//     scalar halo loads and 3 float4 weight loads per 96 FMAs), the halo
+//     staged twice (64 of the 128 output channels a CTA), 448 CTAs of 256
+//     threads on 132 SMs. Now:
+//     - a CTA owns 7 rows x 32 columns x all 128 output channels (C_out >
+//       128 in further CTAs), so the halo is staged once, and the trunk
+//       shape is 16 x 8 = 128 CTAs: one wave, one CTA (200 KB of shared
+//       memory, 512 threads) on each of 128 of the 132 SMs;
+//     - 16 warps, 4 on each scheduler; a thread owns 2 columns x 7 rows x 4
+//       channels, 56 accumulators. The halo is stored column-major, a
+//       column's 9 rows padded to 12 floats (3 bank groups apart, so the 4
+//       column pairs of a warp's load fall in 4 bank groups): for each
+//       (k, dx) a thread reads its 2 shifted columns with 2 float4 and 1
+//       scalar load each and uses them for the 3 dy taps, whose 4 weights
+//       are one float4 that 8 lanes share as 128 contiguous bytes; 504 FMAs
+//       per 27 shared loads (mxu_only: 504 per 13);
+//     - chunks of 16 input channels through a ring of 2 stages (8 and 3
+//       where C_in is not a multiple of 16), one barrier a chunk: the copies
+//       of chunk c+1 run under the products of chunk c. Warp 0 has the TMA
+//       unit bring the weights (one bulk copy a tap where C_out is 128, else
+//       one a row; an mbarrier counts the bytes), which in design trials
+//       beat 16-byte cp.async from every thread; every thread copies its
+//       share of the halo with 4-byte cp.async (a channel-major column
+//       cannot take a pixel's 16 channel-contiguous bytes), each source
+//       address already reflected and clamped.
+//     On the H100 (700 W): 0.187 ms (full), 0.171 ms (mxu_only); the
+//     products alone, staging only the first chunk, take 0.172 ms (76 % of
+//     the FMA rate on 128 SMs), so the staging costs about 8 % and the loop
+//     the rest (python -m vst_torch.probes.kernel_trials). ptxas: 127-128
+//     registers (512 threads cap them at 128), no spill.
 //   bf16, modes 0 and 1: warpgroup wgmma m64n128k16, A from registers, B
-//     from shared memory. A CTA owns all output channels of its 128 pixels
-//     (C_out > 128 in further CTAs of 128), so each halo chunk is staged
-//     once: 2 consumer warpgroups of 64 pixels, 224 CTAs at the trunk
+//     from shared memory. A CTA owns all output channels of its 4 x 32 = 128
+//     pixels (C_out > 128 in further CTAs of 128), so each halo chunk is
+//     staged once: 2 consumer warpgroups of 64 pixels, 224 CTAs at the trunk
 //     shape, 2 resident on an SM (87 KB of shared memory each), so all 224
 //     run in one wave on 132 SMs. Per 16 input channels a stage holds the
 //     halo, channel-contiguous (32 bytes a pixel, the two 16-byte halves
@@ -39,13 +70,14 @@
 //     whose source address resolves the reflection and the ragged-edge
 //     clamp, with channels past C_in and C_out zero-filled, in a ring of 2:
 //     one barrier per chunk, and the copies of chunk c+1 run under the
-//     products of chunk c.
-//   bf16, modes 2 and 3: the SIMT path, converting to f32 at the load.
-//
-// Bound: operations. At the trunk shape (1, 109, 256, 128 -> 128) one conv
-// is 8.23 GFLOP against 29 MB (f32) / 15 MB (bf16) moved: 0.123 ms at the
-// 67 TFLOP/s SIMT f32 rate, 0.0083 ms at the 989 TFLOP/s bf16 tensor rate,
-// and 0.009 / 0.004 ms of memory time at 3.35 TB/s.
+//     products of chunk c. Bound: 0.0083 ms at the 989 TFLOP/s bf16 rate.
+//   modes 2 and 3, both dtypes: SIMT, a CTA of 4 x 32 pixels x 64 channels
+//     stages its halo by synchronous loads (converting bf16 to f32) and
+//     copies or sums the taps. Bound: bytes, 0.009 ms (f32) / 0.004 ms
+//     (bf16) at 3.35 TB/s.
+// ptxas registers and spills: printed by chip_smoke.py's build phase (bf16
+// full 128 registers with 20 bytes of spill, mxu_only 120; modes 2 and 3 64,
+// one with 8 bytes of spill).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -63,6 +95,14 @@ constexpr int kHaloRows = kTileRows + 2;
 constexpr int kHaloCols = kTileCols + 2;
 constexpr int kThreads = 256;
 constexpr int kSimtChunk = 8;   // input channels staged per step, SIMT path
+
+constexpr int kF32Rows = 7;        // output rows a CTA, f32 modes 0 and 1
+constexpr int kF32N = 128;         // output channels a CTA
+constexpr int kF32Threads = 512;   // 16 warps, 4 on each scheduler
+constexpr int kF32ThreadCols = 2;  // output columns a thread
+constexpr int kF32HaloRows = kF32Rows + 2;
+constexpr int kF32HaloCols = kTileCols + 2;
+constexpr int kF32ColStride = 12;  // floats a halo column: 9 rows and 3 of skew
 
 constexpr int kMmaN = 128;       // output channels per CTA, wgmma path
 constexpr int kMmaThreads = 256; // two warpgroups
@@ -113,13 +153,11 @@ __device__ __forceinline__ void store4(__nv_bfloat16* p, const float v[4]) {
       make_uint2(vst::pack_bf16x2(v[0], v[1]), vst::pack_bf16x2(v[2], v[3]));
 }
 
+// Modes 2 and 3 (no product), both dtypes: SIMT, 64 channels a CTA.
 template <typename T, int MODE>
 __global__ void __launch_bounds__(kThreads)
-pad_conv3x3_simt(const T* __restrict__ x, const T* __restrict__ w, T* __restrict__ y,
-                 Geometry g) {
-  constexpr bool kWeighted = MODE == kFull || MODE == kMxuOnly;
+pad_conv3x3_simt(const T* __restrict__ x, T* __restrict__ y, Geometry g) {
   __shared__ float halo[kHaloRows][kSimtChunk][kHaloCols];
-  __shared__ __align__(16) float wt[kWeighted ? 9 : 1][kSimtChunk][kTileN];
 
   const int r0 = (blockIdx.x / g.col_tiles) * kTileRows;
   const int c0 = (blockIdx.x % g.col_tiles) * kTileCols;
@@ -132,11 +170,9 @@ pad_conv3x3_simt(const T* __restrict__ x, const T* __restrict__ w, T* __restrict
   const T* xb = x + (size_t)blockIdx.z * g.height * g.width * g.cin;
 
   float acc[8][4] = {};
-  // modes 2 and 3 map input channel c to output channel c: only the chunks
-  // of this CTA's channel tile are read
-  const int k_begin = kWeighted ? 0 : n0;
-  const int k_end = kWeighted ? g.cin : min(n0 + kTileN, g.cin);
-  for (int k0 = k_begin; k0 < k_end; k0 += kSimtChunk) {
+  // input channel c maps to output channel c: only the chunks of this CTA's
+  // channel tile are read
+  for (int k0 = n0; k0 < min(n0 + kTileN, g.cin); k0 += kSimtChunk) {
     for (int i = tid; i < kHaloRows * kHaloCols; i += kThreads) {
       const int hr = i / kHaloCols;
       const int hc = i % kHaloCols;
@@ -147,60 +183,9 @@ pad_conv3x3_simt(const T* __restrict__ x, const T* __restrict__ w, T* __restrict
 #pragma unroll
       for (int k = 0; k < kSimtChunk; ++k) halo[hr][k][hc] = v[k];
     }
-    if constexpr (kWeighted) {
-      constexpr int kGroups = kTileN / 8;
-      for (int i = tid; i < 9 * kSimtChunk * kGroups; i += kThreads) {
-        const int tap = i / (kSimtChunk * kGroups);
-        const int k = (i / kGroups) % kSimtChunk;
-        const int j = (i % kGroups) * 8;
-        float v[8] = {};
-        if (n0 + j < g.cout) load8(w + ((size_t)tap * g.cin + k0 + k) * g.cout + n0 + j, v);
-#pragma unroll
-        for (int q = 0; q < 8; ++q) wt[tap][k][j + q] = v[q];
-      }
-    }
     __syncthreads();
 
-    if constexpr (MODE == kFull) {
-#pragma unroll
-      for (int dy = 0; dy < 3; ++dy) {
-#pragma unroll 2
-        for (int k = 0; k < kSimtChunk; ++k) {
-          float a[10];
-#pragma unroll
-          for (int i = 0; i < 10; ++i) a[i] = halo[prow + dy][k][pcol + i];
-#pragma unroll
-          for (int dx = 0; dx < 3; ++dx) {
-            const float4 b = *reinterpret_cast<const float4*>(&wt[dy * 3 + dx][k][4 * tn]);
-#pragma unroll
-            for (int i = 0; i < 8; ++i) {
-              acc[i][0] = fmaf(a[i + dx], b.x, acc[i][0]);
-              acc[i][1] = fmaf(a[i + dx], b.y, acc[i][1]);
-              acc[i][2] = fmaf(a[i + dx], b.z, acc[i][2]);
-              acc[i][3] = fmaf(a[i + dx], b.w, acc[i][3]);
-            }
-          }
-        }
-      }
-    } else if constexpr (MODE == kMxuOnly) {
-#pragma unroll 2
-      for (int k = 0; k < kSimtChunk; ++k) {
-        float a[8];
-#pragma unroll
-        for (int i = 0; i < 8; ++i) a[i] = halo[prow][k][pcol + i];
-#pragma unroll
-        for (int tap = 0; tap < 9; ++tap) {
-          const float4 b = *reinterpret_cast<const float4*>(&wt[tap][k][4 * tn]);
-#pragma unroll
-          for (int i = 0; i < 8; ++i) {
-            acc[i][0] = fmaf(a[i], b.x, acc[i][0]);
-            acc[i][1] = fmaf(a[i], b.y, acc[i][1]);
-            acc[i][2] = fmaf(a[i], b.z, acc[i][2]);
-            acc[i][3] = fmaf(a[i], b.w, acc[i][3]);
-          }
-        }
-      }
-    } else if (n >= k0 && n < k0 + kSimtChunk) {  // this thread's 4 channels are staged
+    if (n >= k0 && n < k0 + kSimtChunk) {  // this thread's 4 channels are staged
       const int kk = n - k0;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
@@ -231,6 +216,200 @@ pad_conv3x3_simt(const T* __restrict__ x, const T* __restrict__ w, T* __restrict
     const int c = c0 + pcol + i;
     if (c < g.width) store4(yrow + (size_t)c * g.cout, acc[i]);
   }
+}
+
+// f32 modes 0 and 1: chunks of KC input channels through a ring of S stages.
+// A stage: the 9 taps' weights [tap][k][128 channels], then the halo
+// [k][34 columns][12]: a column's 9 rows, padded to 12 floats.
+template <int KC, int S>
+struct F32Ring {
+  static constexpr int kChunk = KC, kStages = S;
+  static constexpr int kWeightFloats = 9 * KC * kF32N;
+  static constexpr int kStageFloats = kWeightFloats + KC * kF32HaloCols * kF32ColStride;
+  static constexpr int kSmem = S * kStageFloats * 4;
+};
+
+// Stages chunk k0 .. k0 + KC - 1. Warp 0 has the TMA unit copy the weights,
+// counted on `bar`: a tap's KC rows are one block where C_out is 128, else
+// one copy a row of the CTA's `ncols` channels. Every thread copies its share
+// of the halo, 4 bytes at a time, the source address reflected and clamped.
+template <class Ring>
+__device__ __forceinline__ void stage_f32(float* st, uint32_t bar, const float* __restrict__ xb,
+                                          const float* __restrict__ w, const Geometry& g, int r0,
+                                          int c0, int n0, int ncols, int k0) {
+  constexpr int KC = Ring::kChunk;
+  if (threadIdx.x < 32) {
+    const int lane = threadIdx.x;
+    if (lane == 0) vst::mbar_expect_tx(bar, 9 * KC * ncols * 4);
+    __syncwarp();
+    if (g.cout == kF32N) {
+      if (lane < 9) {
+        vst::bulk_load(vst::smem_addr(st + lane * KC * kF32N),
+                       w + ((size_t)lane * g.cin + k0) * kF32N, KC * kF32N * 4, bar);
+      }
+    } else {
+      for (int row = lane; row < 9 * KC; row += 32) {  // row = tap * KC + k
+        const int tap = row / KC, k = row % KC;
+        vst::bulk_load(vst::smem_addr(st + row * kF32N),
+                       w + ((size_t)tap * g.cin + k0 + k) * g.cout + n0, ncols * 4, bar);
+      }
+    }
+  }
+  float* halo = st + Ring::kWeightFloats;
+  for (int i = threadIdx.x; i < kF32HaloRows * kF32HaloCols * KC; i += kF32Threads) {
+    const int k = i % KC;  // a pixel's channels from neighbouring threads
+    const int pix = i / KC;
+    const int hr = pix / kF32HaloCols, hc = pix % kF32HaloCols;
+    const int gr = reflect(r0 - 1 + hr, g.height);
+    const int gc = reflect(c0 - 1 + hc, g.width);
+    vst::cp_async4(vst::smem_addr(halo + (k * kF32HaloCols + hc) * kF32ColStride + hr),
+                   xb + ((size_t)gr * g.width + gc) * g.cin + k0 + k, 4);
+  }
+}
+
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+// a halo column's first N rows (N <= 9)
+template <int N>
+__device__ __forceinline__ void load_column(const float* h, float (&a)[N]) {
+  const float4 lo = ld4(h);
+  const float4 hi = ld4(h + 4);
+  const float v[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+#pragma unroll
+  for (int i = 0; i < (N < 8 ? N : 8); ++i) a[i] = v[i];
+  if constexpr (N > 8) a[8] = h[8];
+}
+
+// Warp w, lane l: output columns 2 (4 (w % 4) + l / 8) and the next, all 7
+// rows; channels 4 cg .. 4 cg + 3 with cg = 8 (w / 4) + l % 8, so a warp's
+// float4 weight loads are 8 neighbouring 16-byte groups.
+template <int MODE, class Ring>
+__global__ void __launch_bounds__(kF32Threads, 1)
+pad_conv3x3_f32(const float* __restrict__ x, const float* __restrict__ w, float* __restrict__ y,
+                Geometry g) {
+  constexpr int KC = Ring::kChunk, S = Ring::kStages, TC = kF32ThreadCols;
+  extern __shared__ __align__(16) float f32_smem[];
+  __shared__ __align__(8) uint64_t wbar[S];  // a stage's weights have landed
+  const int r0 = (blockIdx.x / g.col_tiles) * kF32Rows;
+  const int c0 = (blockIdx.x % g.col_tiles) * kTileCols;
+  const int n0 = blockIdx.y * kF32N;
+  const int ncols = min(kF32N, g.cout - n0);
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int col = TC * (4 * (warp % 4) + lane / 8);
+  const int cg = 8 * (warp / 4) + lane % 8;
+  const float* xb = x + (size_t)blockIdx.z * g.height * g.width * g.cin;
+  const int chunks = g.cin / KC;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S; ++s) vst::mbar_init(vst::smem_addr(&wbar[s]), 1);
+    vst::mbar_fence_init();
+  }
+  if (ncols < kF32N) {  // channels past C_out: zero the weight rows' tails, which no copy writes
+    for (int i = threadIdx.x; i < S * Ring::kWeightFloats; i += kF32Threads) {
+      if (i % kF32N >= ncols) {
+        f32_smem[(i / Ring::kWeightFloats) * Ring::kStageFloats + i % Ring::kWeightFloats] = 0.f;
+      }
+    }
+  }
+  __syncthreads();
+
+  float acc[TC * kF32Rows][4];
+#pragma unroll
+  for (int i = 0; i < TC * kF32Rows; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+
+#pragma unroll
+  for (int s = 0; s < S - 1; ++s) {
+    if (s < chunks) {
+      stage_f32<Ring>(f32_smem + s * Ring::kStageFloats, vst::smem_addr(&wbar[s]), xb, w, g, r0,
+                      c0, n0, ncols, s * KC);
+    }
+    vst::cp_async_commit();
+  }
+  for (int c = 0; c < chunks; ++c) {
+    vst::cp_async_wait<S - 2>();                                // chunk c's halo has landed,
+    vst::mbar_wait(vst::smem_addr(&wbar[c % S]), (c / S) & 1);  // and its weights,
+    __syncthreads();                                            // and chunk c - 1's stage is free
+    const int next = c + S - 1;
+    if (next < chunks) {
+      stage_f32<Ring>(f32_smem + (next % S) * Ring::kStageFloats,
+                      vst::smem_addr(&wbar[next % S]), xb, w, g, r0, c0, n0, ncols, next * KC);
+    }
+    vst::cp_async_commit();
+
+    const float* wt = f32_smem + (c % S) * Ring::kStageFloats + 4 * cg;
+    const float* halo = f32_smem + (c % S) * Ring::kStageFloats + Ring::kWeightFloats +
+                        col * kF32ColStride;
+#pragma unroll 2
+    for (int k = 0; k < KC; ++k) {
+      // full: one pass per dx over the 2 columns it shifts to, each with its
+      // 3 dy taps; mxu_only: one pass over the unshifted columns, all 9 taps
+      constexpr int kPasses = MODE == kFull ? 3 : 1;
+      constexpr int kTapsPerPass = 9 / kPasses;
+      constexpr int kRows = MODE == kFull ? kF32HaloRows : kF32Rows;
+#pragma unroll
+      for (int dx = 0; dx < kPasses; ++dx) {
+        float a[TC][kRows];
+#pragma unroll
+        for (int t = 0; t < TC; ++t)
+          load_column(halo + (k * kF32HaloCols + t + dx) * kF32ColStride, a[t]);
+#pragma unroll
+        for (int p = 0; p < kTapsPerPass; ++p) {
+          const int tap = MODE == kFull ? 3 * p + dx : p;
+          const int dy = MODE == kFull ? p : 0;
+          const float4 v = ld4(wt + (tap * KC + k) * kF32N);
+          const float b[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+          for (int t = 0; t < TC; ++t)
+#pragma unroll
+            for (int i = 0; i < kF32Rows; ++i)
+#pragma unroll
+              for (int j = 0; j < 4; ++j)
+                acc[t * kF32Rows + i][j] = fmaf(a[t][i + dy], b[j], acc[t * kF32Rows + i][j]);
+        }
+      }
+    }
+  }
+  vst::cp_async_wait<0>();
+
+  if (n0 + 4 * cg >= g.cout) return;
+#pragma unroll
+  for (int t = 0; t < TC; ++t) {
+    const int cc = c0 + col + t;
+    if (cc >= g.width) break;
+#pragma unroll
+    for (int i = 0; i < kF32Rows; ++i) {
+      const int r = r0 + i;
+      if (r >= g.height) break;
+      store4(y + (((size_t)blockIdx.z * g.height + r) * g.width + cc) * g.cout + n0 + 4 * cg,
+             acc[t * kF32Rows + i]);
+    }
+  }
+}
+
+template <int MODE, class Ring>
+int launch_f32_ring(const float* x, const float* w, float* y, const Geometry& g, int batch,
+                    cudaStream_t s) {
+  static bool smem_allowed = false;
+  const cudaError_t err = vst::allow_smem(pad_conv3x3_f32<MODE, Ring>, Ring::kSmem, smem_allowed);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(g.col_tiles * ((g.height + kF32Rows - 1) / kF32Rows),
+                  (g.cout + kF32N - 1) / kF32N, batch);
+  pad_conv3x3_f32<MODE, Ring><<<grid, kF32Threads, Ring::kSmem, s>>>(x, w, y, g);
+  return (int)cudaGetLastError();
+}
+
+// chunks of 16 input channels in a ring of 2 where C_in allows, else of 8 in
+// a ring of 3: a chunk never runs past C_in, so no copy needs a zero fill
+template <int MODE>
+int launch_f32(const float* x, const float* w, float* y, const Geometry& g, int batch,
+               cudaStream_t s) {
+  if (g.cin % 16 == 0) return launch_f32_ring<MODE, F32Ring<16, 2>>(x, w, y, g, batch, s);
+  return launch_f32_ring<MODE, F32Ring<8, 3>>(x, w, y, g, batch, s);
 }
 
 // bf16 modes 0 and 1 on wgmma. Warpgroup wg owns tile pixels 64 wg .. + 63
@@ -365,7 +544,7 @@ extern "C" int pad_conv3x3_launch(const void* x, const void* w, void* y, int bat
   }
   Geometry g{height, width, cin, cout, (width + kTileCols - 1) / kTileCols};
   const int row_tiles = (height + kTileRows - 1) / kTileRows;
-  const dim3 grid(g.col_tiles * row_tiles, (cout + kTileN - 1) / kTileN, batch);
+  const dim3 grid(g.col_tiles * row_tiles, (cout + kTileN - 1) / kTileN, batch);  // SIMT
   cudaStream_t s = (cudaStream_t)stream;
   const float* xf = static_cast<const float*>(x);
   const float* wf = static_cast<const float*>(w);
@@ -375,26 +554,24 @@ extern "C" int pad_conv3x3_launch(const void* x, const void* w, void* y, int bat
   __nv_bfloat16* yh = static_cast<__nv_bfloat16*>(y);
   switch (4 * bf16 + mode) {
     case kFull:
-      pad_conv3x3_simt<float, kFull><<<grid, kThreads, 0, s>>>(xf, wf, yf, g);
-      break;
+      return launch_f32<kFull>(xf, wf, yf, g, batch, s);
     case kMxuOnly:
-      pad_conv3x3_simt<float, kMxuOnly><<<grid, kThreads, 0, s>>>(xf, wf, yf, g);
-      break;
+      return launch_f32<kMxuOnly>(xf, wf, yf, g, batch, s);
     case kShiftOnly:
-      pad_conv3x3_simt<float, kShiftOnly><<<grid, kThreads, 0, s>>>(xf, wf, yf, g);
+      pad_conv3x3_simt<float, kShiftOnly><<<grid, kThreads, 0, s>>>(xf, yf, g);
       break;
     case kDmaOnly:
-      pad_conv3x3_simt<float, kDmaOnly><<<grid, kThreads, 0, s>>>(xf, wf, yf, g);
+      pad_conv3x3_simt<float, kDmaOnly><<<grid, kThreads, 0, s>>>(xf, yf, g);
       break;
     case 4 + kFull:
       return launch_wgmma<kFull>(xh, wh, yh, g, row_tiles, batch, s);
     case 4 + kMxuOnly:
       return launch_wgmma<kMxuOnly>(xh, wh, yh, g, row_tiles, batch, s);
     case 4 + kShiftOnly:
-      pad_conv3x3_simt<__nv_bfloat16, kShiftOnly><<<grid, kThreads, 0, s>>>(xh, wh, yh, g);
+      pad_conv3x3_simt<__nv_bfloat16, kShiftOnly><<<grid, kThreads, 0, s>>>(xh, yh, g);
       break;
     default:
-      pad_conv3x3_simt<__nv_bfloat16, kDmaOnly><<<grid, kThreads, 0, s>>>(xh, wh, yh, g);
+      pad_conv3x3_simt<__nv_bfloat16, kDmaOnly><<<grid, kThreads, 0, s>>>(xh, yh, g);
       break;
   }
   return (int)cudaGetLastError();

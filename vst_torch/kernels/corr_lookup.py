@@ -7,7 +7,9 @@
 CUDA tensors by launching the kernel, which it builds with ``nvcc`` at first
 use into ``vst_torch/_build/`` (listed in ``.gitignore``) and loads with
 ctypes. A build or launch that fails raises. ``corr_lookup.launches``
-counts kernel launches.
+counts kernel launches. The kernel is compiled for the radii of
+``KERNEL_RADII`` (RAFT small uses 3, RAFT full 4); on CUDA another radius
+raises, on the CPU every radius is computed.
 
 Backward: the TPU kernel had no backward kernel of its own
 (``pallas_corr.py:_lookup_bwd``), so the backward recomputes through the
@@ -25,6 +27,7 @@ from vst_torch.flow.corr import lookup_pyramid
 from vst_torch.kernels import _nvcc
 
 MAX_LEVELS = 4
+KERNEL_RADII = (3, 4)
 _ENTRY_POINTS = {"corr_lookup_launch": (
     [ctypes.c_void_p] * 4
     + [ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int), ctypes.c_int,
@@ -41,11 +44,18 @@ def build() -> str:
     return _nvcc.load("corr_lookup", _ENTRY_POINTS)[1]
 
 
+def check_radius(radius: int, device: torch.device) -> None:
+    """Raise unless ``radius`` is one the computation on ``device`` takes:
+    any non-negative int on the CPU, one of ``KERNEL_RADII`` on CUDA."""
+    if int(radius) != radius or radius < 0:
+        raise ValueError(f"radius must be a non-negative int, got {radius}")
+    if device.type == "cuda" and radius not in KERNEL_RADII:
+        raise ValueError(f"the corr_lookup kernel takes radius {KERNEL_RADII}, got {radius}")
+
+
 def _check(pyramid: Sequence[torch.Tensor], coords: torch.Tensor, radius: int) -> None:
     if not 1 <= len(pyramid) <= MAX_LEVELS:
         raise ValueError(f"corr_lookup takes 1..{MAX_LEVELS} levels, got {len(pyramid)}")
-    if int(radius) != radius or radius < 0:
-        raise ValueError(f"radius must be a non-negative int, got {radius}")
     if coords.dim() != 4 or coords.shape[1] != 2:
         raise ValueError(f"coords must be (B, 2, H, W), got {tuple(coords.shape)}")
     B, _, H, W = coords.shape
@@ -59,6 +69,7 @@ def _check(pyramid: Sequence[torch.Tensor], coords: torch.Tensor, radius: int) -
             raise ValueError("corr_lookup takes contiguous tensors")
     if coords.device.type not in ("cpu", "cuda"):
         raise ValueError(f"corr_lookup runs on cpu or cuda, got {coords.device}")
+    check_radius(radius, coords.device)
     for lvl in pyramid:
         if lvl.dim() != 4 or lvl.shape[0] != q or lvl.shape[1] != 1:
             raise ValueError(
@@ -109,9 +120,16 @@ class _CorrLookup(torch.autograd.Function):
 def corr_lookup(pyramid: Sequence[torch.Tensor], coords: torch.Tensor,
                 radius: int) -> torch.Tensor:
     """Drop-in for ``lookup_pyramid``: pyramid levels (B·H·W, 1, h_l, w_l)
-    and coords (B, 2, H, W), all contiguous float32 on one device. Returns
+    and coords (B, 2, H, W), all contiguous float32 on one device; on CUDA
+    the radius is one of ``KERNEL_RADII``. Returns
     (B, L·(2r+1)², H, W), an NCHW view of a channel-last tensor."""
     _check(pyramid, coords, radius)
+    if coords.is_cuda and not (torch.is_grad_enabled() and (
+            coords.requires_grad or any(t.requires_grad for t in pyramid))):
+        # no graph to record: the autograd.Function's own cost showed in the
+        # lookup's host-launched time (chip_smoke.py phase 2 on the H100:
+        # 0.070 ms through it, 0.062-0.063 without)
+        return _launch(pyramid, coords, int(radius))
     return _CorrLookup.apply(int(radius), coords, *pyramid)
 
 

@@ -16,7 +16,7 @@ kernel is their one Hopper counterpart. Float32 runs with TF32 off.
 from __future__ import annotations
 
 import json
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -34,11 +34,12 @@ PIXELS = 27904  # H·W, as the script counts them
 
 
 def trunk_inputs(dtype: torch.dtype, device, seed: int = 0,
-                 shape: Tuple[int, int, int, int] = (1, H, W, C)):
-    """x (N, H, W, C) ~ N(0, 1) and w (3, 3, C, C) ~ N(0, 0.02²), from numpy."""
+                 shape: Tuple[int, int, int, int] = (1, H, W, C), cout: Optional[int] = None):
+    """x (N, H, W, C) ~ N(0, 1) and w (3, 3, C, C_out) ~ N(0, 0.02²), from
+    numpy; C_out = C unless given."""
     rng = np.random.RandomState(seed)
     c = shape[3]
-    w = torch.from_numpy(rng.randn(3, 3, c, c).astype(np.float32) * 0.02)
+    w = torch.from_numpy(rng.randn(3, 3, c, cout or c).astype(np.float32) * 0.02)
     x = torch.from_numpy(rng.randn(*shape).astype(np.float32))
     return x.to(device, dtype), w.to(device, dtype)
 
