@@ -26,11 +26,15 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
    version at the trunk shape 1×109×256×128, a ragged 2×13×37×64, the
    CPU-test shapes, C_in ≠ C_out, C_out = 8 and 136, batch 3 and H = 2, f32
    (≤ 1e-4 absolute) and bf16 (≤ 1e-3 + 2⁻⁷·|plain|); then the probe
-   vst_torch.probes.bisect_im2col: ms/conv over a 10-conv chain, plain,
-   cuDNN and bound.
-7. kernel_cost: the four modes against their plain versions at the trunk
-   and ragged shapes, then the probe vst_torch.probes.bisect_kernel_cost,
-   each mode beside one library call that computes it.
+   vst_torch.probes.bisect_im2col: ms/conv over a host-launched 10-conv
+   chain, the device time alone (device_ms, a CUDA graph over inputs cold
+   in L2), the host's time to issue a call (host_ms), plain, cuDNN and
+   bound.
+7. kernel_cost: shift_only and dma_only against their plain versions at
+   the same ten shapes, bit for bit (max |Δ| = 0: the same f32 sums in the
+   same order, one rounding), then the probe
+   vst_torch.probes.bisect_kernel_cost, the four modes timed as in phase 6,
+   each beside one library call that computes it.
 8. gemm_rate: the kernel against its plain version at every (K, N) of the
    sweep (f32 ≤ 1e-5·max|y|, bf16 ≤ 2⁻⁷·max|y|), then the probe
    vst_torch.probes.bisect_mxu: ms, TF/s, bound, one cuBLAS call of depth
@@ -89,6 +93,8 @@ TCL_RTOL = 1e-4
 # |y| ~ 1 in another order; bf16 one rounding of the same f32 sum (1 ulp)
 CONV_F32_ATOL = 1e-4
 CONV_BF16_ATOL, CONV_BF16_RTOL = 1e-3, 2.0 ** -7
+# the modes without a product take the plain version's sums in its order
+CONV_EXACT_MODES = ("shift_only", "dma_only")
 # gemm_rate against its plain version, relative to max|y|: f32 sums of up to
 # 64·1152 terms in another order; bf16 one rounding of the f32 sum
 GEMM_TOL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -7}
@@ -455,8 +461,9 @@ CONV_SHAPES = (("trunk", (1, 109, 256, 128), 128), ("ragged", (2, 13, 37, 64), 6
 
 
 def check_pad_conv3x3(dev, modes, shapes):
-    """Each mode and dtype against its plain version on the same inputs;
-    returns {(mode, dtype name): max |Δ|} over ``shapes``."""
+    """Each mode and dtype against its plain version on the same inputs, bit
+    for bit for ``CONV_EXACT_MODES``; returns {(mode, dtype name): max |Δ|}
+    over ``shapes``."""
     errs = {}
     for mode in modes:
         for dtype in DTYPES:
@@ -468,7 +475,9 @@ def check_pad_conv3x3(dev, modes, shapes):
                     want = pad_conv3x3_plain(x, w, mode).float()
                 torch.cuda.synchronize()
                 diff = (got - want).abs()
-                if dtype == torch.bfloat16:
+                if mode in CONV_EXACT_MODES:
+                    ok = bool((diff == 0).all())
+                elif dtype == torch.bfloat16:
                     ok = bool((diff <= CONV_BF16_ATOL + CONV_BF16_RTOL * want.abs()).all())
                 else:
                     ok = bool((diff <= CONV_F32_ATOL).all())
@@ -492,11 +501,12 @@ def phase_trunk_conv(dev):
           "max_abs_err": {"/".join(k): v for k, v in errs.items()},
           "probe": records, "launches": {"/".join(k): v for k, v in launches.items()}})
     return {k: {"max_abs_err": errs[k], "launches": launches[k], **rec}
-            for k, rec in zip(keys, records)}
+            for k, rec in zip(keys, records)}, errs
 
 
-def phase_kernel_cost(dev):
-    errs = check_pad_conv3x3(dev, MODES, CONV_SHAPES[:2])
+def phase_kernel_cost(dev, weighted_errs):
+    """``weighted_errs``: phase 6's max |Δ| of full and mxu_only."""
+    errs = {**weighted_errs, **check_pad_conv3x3(dev, CONV_EXACT_MODES, CONV_SHAPES)}
     reset_counts()
     records = bisect_kernel_cost.run(dev)
     keys = [(m, dtype_name(d)) for d in DTYPES for m in MODES]
@@ -573,14 +583,15 @@ def kernel_entries(name, source, replaces, measured):
              "replaces": replaces, "launches": m["launches"], "max_abs_err": m["max_abs_err"],
              "ms": m["ms"], "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
              "bound_by": m["bound_by"], "library_ms": m.get("library_ms"),
-             **({"library_x64_ms": m["library_x64_ms"]} if "library_x64_ms" in m else {})}
+             **{k: m[k] for k in ("device_ms", "host_ms", "library_x64_ms") if k in m}}
             for variant, m in measured.items()]
 
 
 def per_conv(measured):
     """A probe record's per-conv times under the kernels line's names."""
     return {"launches": measured["launches"], "max_abs_err": measured["max_abs_err"],
-            "ms": measured["ms_per_conv"], "plain_ms": measured["plain_ms_per_conv"],
+            "ms": measured["ms_per_conv"], "device_ms": measured["device_ms"],
+            "host_ms": measured["host_ms"], "plain_ms": measured["plain_ms_per_conv"],
             "bound_ms": measured["bound_ms"], "bound_by": measured["bound_by"],
             "library_ms": measured.get("library_ms_per_conv")}
 
@@ -600,8 +611,8 @@ def main() -> int:
     phase_stylize(dev)
     phase_raft(dev)
     launches = phase_main_path(dev)
-    trunk = phase_trunk_conv(dev)
-    cost = phase_kernel_cost(dev)
+    trunk, weighted_errs = phase_trunk_conv(dev)
+    cost = phase_kernel_cost(dev, weighted_errs)
     gemm = phase_gemm_rate(dev)
     phase_bench(dev)
 

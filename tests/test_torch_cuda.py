@@ -16,6 +16,7 @@ from vst_torch.flow.raft import RAFT, coords_grid
 from vst_torch.kernels.corr_lookup import corr_lookup
 from vst_torch.kernels.gemm_rate import gemm_rate, gemm_rate_plain
 from vst_torch.kernels.pad_conv3x3 import MODES, dtype_name, pad_conv3x3, pad_conv3x3_plain
+from vst_torch.probes.bisect_im2col import trunk_inputs
 from vst_torch.probes.bisect_mxu import SHAPES as GEMM_SHAPES
 
 pytestmark = pytest.mark.cuda
@@ -115,6 +116,31 @@ def test_pad_conv3x3_matches_plain(dev, shape, mode, dtype):
         torch.testing.assert_close(got, want, atol=1e-4, rtol=0)
     else:
         torch.testing.assert_close(got.float(), want.float(), atol=1e-3, rtol=2.0 ** -7)
+
+
+# chip_smoke.py's CONV_SHAPES: (N, H, W, C_in) and the C_out of w, which the
+# halo-only modes do not read
+CONV_SHAPES = [((1, 109, 256, 128), 128), ((2, 13, 37, 64), 64), ((1, 20, 16, 8), 8),
+               ((1, 21, 16, 8), 8), ((1, 40, 70, 64), 128), ((1, 40, 70, 128), 64),
+               ((2, 13, 37, 64), 8), ((3, 9, 40, 32), 32), ((1, 2, 37, 64), 64),
+               ((2, 2, 2, 16), 136)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=dtype_name)
+@pytest.mark.parametrize("mode", ["shift_only", "dma_only"])
+@pytest.mark.parametrize("shape,cout", CONV_SHAPES,
+                         ids=lambda v: "x".join(map(str, v)) if isinstance(v, tuple) else str(v))
+def test_pad_conv3x3_halo_only_bit_exact(dev, shape, cout, mode, dtype):
+    """The modes without a product take the plain version's f32 sums in its
+    (dy, dx) order and round once, so they agree bit for bit."""
+    x, w = trunk_inputs(dtype, dev, 4, shape, cout)
+    before = pad_conv3x3.launches[(mode, dtype_name(dtype))]
+    got = pad_conv3x3(x, w, mode)
+    torch.cuda.synchronize()
+    assert pad_conv3x3.launches[(mode, dtype_name(dtype))] == before + 1
+    want = pad_conv3x3_plain(x, w, mode)
+    assert got.dtype == dtype and got.shape == want.shape == shape
+    torch.testing.assert_close(got, want, atol=0, rtol=0)
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 2.0 ** -7)],

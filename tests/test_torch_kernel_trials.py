@@ -10,9 +10,11 @@ from vst_torch.probes import kernel_trials
 
 @pytest.mark.parametrize("name,variant", [
     ("corr_lookup", v) for v in kernel_trials.CORR_VARIANTS] + [
-    ("pad_conv3x3", v) for v in kernel_trials.CONV_VARIANTS])
+    ("pad_conv3x3", v) for v in kernel_trials.CONV_VARIANTS] + [
+    ("pad_conv3x3", v) for v in kernel_trials.HALO_VARIANTS])
 def test_variant_edits_apply(name, variant):
-    table = kernel_trials.CORR_VARIANTS if name == "corr_lookup" else kernel_trials.CONV_VARIANTS
+    table = (kernel_trials.CORR_VARIANTS if name == "corr_lookup" else
+             {**kernel_trials.CONV_VARIANTS, **kernel_trials.HALO_VARIANTS})
     source = (_nvcc.CSRC / f"{name}.cu").read_text()
     for old, new in table[variant]:
         assert source.count(old) == 1

@@ -29,7 +29,7 @@ import torch
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
 
-from vst_torch.kernels.pad_conv3x3 import MODES, pad_conv3x3, pad_conv3x3_plain
+from vst_torch.kernels.pad_conv3x3 import MODES, launch_args, pad_conv3x3, pad_conv3x3_plain
 from vst_torch.probes.bisect_kernel_cost import library_arg, library_mode
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -123,6 +123,41 @@ def test_wrapper_checks_its_inputs():
         pad_conv3x3(x[:, :1].contiguous(), w)
     with pytest.raises(ValueError):
         pad_conv3x3(x.transpose(1, 2), w)
+
+
+def _bad_inputs():
+    """What ``_check`` refuses, each with the error it raises."""
+    x, w = (torch.from_numpy(a) for a in _inputs(5, 7, 16))
+    return {"mode": ((x, w, "tap9"), ValueError),
+            "dtype": ((x, w.double(), "full"), TypeError),
+            "channels": ((x[:, :, :, :12].contiguous(), w[:, :, :12].contiguous(), "full"),
+                         ValueError),
+            "height": ((x[:, :1].contiguous(), w, "dma_only"), ValueError),
+            "layout": ((x.transpose(1, 2), w, "shift_only"), ValueError),
+            "w_shape": ((x, w[:2].contiguous(), "shift_only"), ValueError)}
+
+
+@pytest.mark.parametrize("case", list(_bad_inputs()))
+def test_wrapper_refusals_count_no_launch(case):
+    (x, w, mode), error = _bad_inputs()[case]
+    before = sum(pad_conv3x3.launches.values())
+    with pytest.raises(error):
+        pad_conv3x3(x, w, mode)
+    assert sum(pad_conv3x3.launches.values()) == before
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("mode", MODES)
+def test_launch_args(mode, dtype):
+    """The kernel's integer arguments: C_out from w for the weighted modes,
+    C_in for the others; the mode's index in MODES; bf16 1 or 0."""
+    x = torch.zeros((2, 5, 7, 16), dtype=dtype)
+    w = torch.zeros((3, 3, 16, 24), dtype=dtype)
+    args, key = launch_args(x, w, mode)
+    cout = 24 if mode in ("full", "mxu_only") else 16
+    assert args == (2, 5, 7, 16, cout, MODES.index(mode), int(dtype == torch.bfloat16))
+    assert all(type(a) is int for a in args)
+    assert key == (mode, str(dtype).removeprefix("torch."))
 
 
 @pytest.mark.parametrize("shape", SHAPES, ids=lambda s: f"H{s[0]}")

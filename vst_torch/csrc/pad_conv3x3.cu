@@ -71,13 +71,37 @@
 //     clamp, with channels past C_in and C_out zero-filled, in a ring of 2:
 //     one barrier per chunk, and the copies of chunk c+1 run under the
 //     products of chunk c. Bound: 0.0083 ms at the 989 TFLOP/s bf16 rate.
-//   modes 2 and 3, both dtypes: SIMT, a CTA of 4 x 32 pixels x 64 channels
-//     stages its halo by synchronous loads (converting bf16 to f32) and
-//     copies or sums the taps. Bound: bytes, 0.009 ms (f32) / 0.004 ms
-//     (bf16) at 3.35 TB/s.
+//   modes 2 and 3, both dtypes: no product, so the bound is bytes: x read
+//     once and y written once, 0.0085 ms (f32) / 0.0043 ms (bf16) at the
+//     trunk shape at 3.35 TB/s. Both work on 16-byte channel-contiguous
+//     vectors (4 f32 or 8 bf16 channels), so neither converts on the way in
+//     and every lane of a warp moves 16 bytes of one 512-byte run.
+//     - dma_only is a gather copy: output row r is input row reflect(r - 1)
+//       moved one pixel right, with column 0 taken from column 1. No shared
+//       memory and no barrier: a thread loads kCopyVecs vectors of one row,
+//       all in flight, then stores them; a CTA covers 16 KB of a row, so the
+//       trunk shape is 872 (f32) / 436 (bf16) CTAs, one wave on 132 SMs.
+//     - shift_only: a CTA owns kShiftRows output rows x 32 columns x one
+//       128-byte slice of the channels (8 vectors), and brings its halo,
+//       (kShiftRows + 2) rows x 34 columns of slices, into shared memory by
+//       16-byte cp.async, every copy in flight at once, the reflection and
+//       the ragged-edge clamp resolved in the source address. A thread then
+//       owns one vector of one column and walks the kShiftRows rows with the
+//       3 x 3 window in registers, reading one new halo row (3 vectors) per
+//       row: each halo vector is read from device memory once a CTA (the
+//       halo re-reads (10 x 34) / (8 x 32) = 1.33x of x, mostly from L2),
+//       and the sum is taken in f32 in the plain version's (dy, dx) order,
+//       so it is bit for bit the plain version's. Chosen over a register
+//       window that loads its side columns itself (15 % slower), and over
+//       4 and 16 rows, by the split of python -m
+//       vst_torch.probes.kernel_trials.
+//     On the H100 (700 W), the kernel alone on inputs cold in L2: dma_only
+//     0.0112 ms (f32, 76 % of the bound) / 0.0067 (bf16, 64 %), shift_only
+//     0.0123 (69 %) / 0.0077 (56 %); shift_only's staging alone 0.0081 /
+//     0.0051, its stores alone 0.0064 / 0.0039.
 // ptxas registers and spills: printed by chip_smoke.py's build phase (bf16
-// full 128 registers with 20 bytes of spill, mxu_only 120; modes 2 and 3 64,
-// one with 8 bytes of spill).
+// full 128 registers with 20 bytes of spill, mxu_only 120; shift_only 40
+// (f32) / 72 (bf16), dma_only 32, no spill).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -90,11 +114,15 @@ enum Mode { kFull = 0, kMxuOnly = 1, kShiftOnly = 2, kDmaOnly = 3 };
 
 constexpr int kTileRows = 4;
 constexpr int kTileCols = 32;
-constexpr int kTileN = 64;
 constexpr int kHaloRows = kTileRows + 2;
 constexpr int kHaloCols = kTileCols + 2;
-constexpr int kThreads = 256;
-constexpr int kSimtChunk = 8;   // input channels staged per step, SIMT path
+
+constexpr int kHaloThreads = 256;  // modes 2 and 3
+constexpr int kCopyVecs = 4;       // dma_only: 16-byte vectors a thread
+constexpr int kSliceVecs = 8;      // shift_only: 16-byte vectors of a pixel a CTA (128 bytes)
+constexpr int kShiftRows = 8;      // shift_only: output rows a CTA
+constexpr int kShiftCols = kHaloThreads / kSliceVecs;  // 32 output columns a CTA
+constexpr int kShiftSmem = (kShiftRows + 2) * (kShiftCols + 2) * kSliceVecs * 16;
 
 constexpr int kF32Rows = 7;        // output rows a CTA, f32 modes 0 and 1
 constexpr int kF32N = 128;         // output channels a CTA
@@ -126,96 +154,133 @@ __device__ __forceinline__ int reflect(int i, int n) {
   return min(max(i, 0), n - 1);
 }
 
-__device__ __forceinline__ void load8(const float* p, float v[8]) {
-  const float4 a = *reinterpret_cast<const float4*>(p);
-  const float4 b = *reinterpret_cast<const float4*>(p + 4);
-  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
-  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
-}
-
-__device__ __forceinline__ void load8(const __nv_bfloat16* p, float v[8]) {
-  const uint4 u = *reinterpret_cast<const uint4*>(p);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(h[i]);
-    v[2 * i] = f.x;
-    v[2 * i + 1] = f.y;
-  }
-}
-
 __device__ __forceinline__ void store4(float* p, const float v[4]) {
   *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
 }
 
-__device__ __forceinline__ void store4(__nv_bfloat16* p, const float v[4]) {
-  *reinterpret_cast<uint2*>(p) =
-      make_uint2(vst::pack_bf16x2(v[0], v[1]), vst::pack_bf16x2(v[2], v[3]));
+// s += the 16-byte vector v, as 4 f32 or 8 bf16 values (a bf16 is the top
+// half of its f32, so the widening is exact)
+__device__ __forceinline__ void accumulate(float (&s)[4], const uint4& v) {
+  s[0] = __fadd_rn(s[0], __uint_as_float(v.x));
+  s[1] = __fadd_rn(s[1], __uint_as_float(v.y));
+  s[2] = __fadd_rn(s[2], __uint_as_float(v.z));
+  s[3] = __fadd_rn(s[3], __uint_as_float(v.w));
 }
 
-// Modes 2 and 3 (no product), both dtypes: SIMT, 64 channels a CTA.
-template <typename T, int MODE>
-__global__ void __launch_bounds__(kThreads)
-pad_conv3x3_simt(const T* __restrict__ x, T* __restrict__ y, Geometry g) {
-  __shared__ float halo[kHaloRows][kSimtChunk][kHaloCols];
-
-  const int r0 = (blockIdx.x / g.col_tiles) * kTileRows;
-  const int c0 = (blockIdx.x % g.col_tiles) * kTileCols;
-  const int n0 = blockIdx.y * kTileN;
-  const int tid = threadIdx.x;
-  const int tn = tid % 16;              // channels n .. n+3
-  const int prow = (tid / 16) / 4;      // one output row of the tile
-  const int pcol = ((tid / 16) % 4) * 8;  // 8 output columns pcol .. pcol+7
-  const int n = n0 + 4 * tn;
-  const T* xb = x + (size_t)blockIdx.z * g.height * g.width * g.cin;
-
-  float acc[8][4] = {};
-  // input channel c maps to output channel c: only the chunks of this CTA's
-  // channel tile are read
-  for (int k0 = n0; k0 < min(n0 + kTileN, g.cin); k0 += kSimtChunk) {
-    for (int i = tid; i < kHaloRows * kHaloCols; i += kThreads) {
-      const int hr = i / kHaloCols;
-      const int hc = i % kHaloCols;
-      const int gr = reflect(r0 - 1 + hr, g.height);
-      const int gc = reflect(c0 - 1 + hc, g.width);
-      float v[8];
-      load8(xb + ((size_t)gr * g.width + gc) * g.cin + k0, v);
+__device__ __forceinline__ void accumulate(float (&s)[8], const uint4& v) {
+  const uint32_t u[4] = {v.x, v.y, v.z, v.w};
 #pragma unroll
-      for (int k = 0; k < kSimtChunk; ++k) halo[hr][k][hc] = v[k];
-    }
-    __syncthreads();
-
-    if (n >= k0 && n < k0 + kSimtChunk) {  // this thread's 4 channels are staged
-      const int kk = n - k0;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-#pragma unroll
-        for (int i = 0; i < 8; ++i) {
-          if constexpr (MODE == kDmaOnly) {
-            acc[i][j] = halo[prow][kk + j][pcol + i];
-          } else {  // the 9 shifted taps, summed in the plain version's order
-            float s = 0.f;
-#pragma unroll
-            for (int dy = 0; dy < 3; ++dy) {
-#pragma unroll
-              for (int dx = 0; dx < 3; ++dx) s = __fadd_rn(s, halo[prow + dy][kk + j][pcol + i + dx]);
-            }
-            acc[i][j] = s;
-          }
-        }
-      }
-    }
-    __syncthreads();
+  for (int i = 0; i < 4; ++i) {
+    s[2 * i] = __fadd_rn(s[2 * i], __uint_as_float(u[i] << 16));
+    s[2 * i + 1] = __fadd_rn(s[2 * i + 1], __uint_as_float(u[i] & 0xffff0000u));
   }
+}
 
-  const int r = r0 + prow;
-  if (r >= g.height || n >= g.cout) return;
-  T* yrow = y + (((size_t)blockIdx.z * g.height + r) * g.width) * g.cout + n;
+__device__ __forceinline__ uint4 pack(const float (&s)[4]) {
+  return make_uint4(__float_as_uint(s[0]), __float_as_uint(s[1]), __float_as_uint(s[2]),
+                    __float_as_uint(s[3]));
+}
+
+__device__ __forceinline__ uint4 pack(const float (&s)[8]) {  // rounded to nearest even
+  return make_uint4(vst::pack_bf16x2(s[0], s[1]), vst::pack_bf16x2(s[2], s[3]),
+                    vst::pack_bf16x2(s[4], s[5]), vst::pack_bf16x2(s[6], s[7]));
+}
+
+// dma_only, both dtypes, as 16-byte vectors (vpp a pixel, row_vecs a row):
+// y[n, r, c] = x[n, reflect(r - 1), reflect(c - 1)]. CTA b copies vectors
+// chunk * 1024 .. + 1023 of output row b / chunks (of all batch * height).
+__global__ void __launch_bounds__(kHaloThreads)
+pad_shift_copy(const uint4* __restrict__ x, uint4* __restrict__ y, int height, int row_vecs,
+               int vpp, int chunks) {
+  const int row = blockIdx.x / chunks;  // n * height + r
+  const int first = (blockIdx.x % chunks) * kHaloThreads * kCopyVecs + threadIdx.x;
+  const uint4* src = x + (size_t)(row % height == 0 ? row + 1 : row - 1) * row_vecs;
+  uint4* dst = y + (size_t)row * row_vecs;
+  uint4 v[kCopyVecs];
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int c = c0 + pcol + i;
-    if (c < g.width) store4(yrow + (size_t)c * g.cout, acc[i]);
+  for (int j = 0; j < kCopyVecs; ++j) {
+    const int i = first + j * kHaloThreads;  // column 0 from column 1, column c from c - 1
+    if (i < row_vecs) v[j] = __ldg(src + (i < vpp ? i + vpp : i - vpp));
   }
+#pragma unroll
+  for (int j = 0; j < kCopyVecs; ++j) {
+    const int i = first + j * kHaloThreads;
+    if (i < row_vecs) dst[i] = v[j];
+  }
+}
+
+// shift_only, both dtypes (LANES: 4 f32 or 8 bf16 values a vector). A CTA owns
+// kShiftRows output rows x 32 columns x vectors k0 .. k0 + 7 of each pixel;
+// thread t owns vector k0 + t % 8 of column t / 8.
+template <int LANES>
+__global__ void __launch_bounds__(kHaloThreads)
+pad_shift_sum(const uint4* __restrict__ x, uint4* __restrict__ y, Geometry g, int vpp) {
+  extern __shared__ uint4 halo_tile[];  // [kShiftRows + 2][kShiftCols + 2][kSliceVecs]
+  constexpr int kCols = kShiftCols + 2;
+  const int r0 = (blockIdx.x / g.col_tiles) * kShiftRows;
+  const int c0 = (blockIdx.x % g.col_tiles) * kShiftCols;
+  const int k0 = blockIdx.y * kSliceVecs;
+  const int nvec = min(kSliceVecs, vpp - k0);
+  const size_t image = (size_t)blockIdx.z * g.height * g.width;
+  const uint4* xb = x + image * vpp + k0;
+  for (int i = threadIdx.x; i < (kShiftRows + 2) * kCols * kSliceVecs; i += kHaloThreads) {
+    const int k = i % kSliceVecs, pix = i / kSliceVecs;
+    if (k < nvec) {
+      const int gr = reflect(r0 - 1 + pix / kCols, g.height);
+      const int gc = reflect(c0 - 1 + pix % kCols, g.width);
+      vst::cp_async16(vst::smem_addr(halo_tile + i), xb + ((size_t)gr * g.width + gc) * vpp + k, 16);
+    }
+  }
+  vst::cp_async_commit();
+  vst::cp_async_wait<0>();
+  __syncthreads();
+
+  const int k = threadIdx.x % kSliceVecs, col = threadIdx.x / kSliceVecs;
+  const int c = c0 + col;
+  if (k >= nvec || c >= g.width) return;
+  const uint4* t = halo_tile + col * kSliceVecs + k;  // halo row 0, the window's left column
+  uint4 win[3][3];  // halo rows i, i + 1, i + 2 at slots i % 3, ..., columns c - 1, c, c + 1
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr)
+#pragma unroll
+    for (int dx = 0; dx < 3; ++dx) win[hr][dx] = t[(hr * kCols + dx) * kSliceVecs];
+#pragma unroll
+  for (int i = 0; i < kShiftRows; ++i) {
+    if (r0 + i >= g.height) break;
+#pragma unroll
+    for (int dx = 0; dx < 3; ++dx) win[(i + 2) % 3][dx] = t[((i + 2) * kCols + dx) * kSliceVecs];
+    float s[LANES] = {};
+#pragma unroll
+    for (int dy = 0; dy < 3; ++dy)
+#pragma unroll
+      for (int dx = 0; dx < 3; ++dx) accumulate(s, win[(i + dy) % 3][dx]);
+    y[(image + (size_t)(r0 + i) * g.width + c) * vpp + k0 + k] = pack(s);
+  }
+}
+
+// vpp: 16-byte vectors a pixel. The copy indexes a row's vectors and its
+// CTAs in 32 bits, and refuses a shape past that.
+int launch_copy(const uint4* x, uint4* y, const Geometry& g, int vpp, int batch, cudaStream_t s) {
+  const long long row_vecs = (long long)g.width * vpp;
+  const long long chunks = (row_vecs + kHaloThreads * kCopyVecs - 1) / (kHaloThreads * kCopyVecs);
+  const long long ctas = (long long)batch * g.height * chunks;
+  if (row_vecs > (1 << 30) || ctas > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  pad_shift_copy<<<(unsigned)ctas, kHaloThreads, 0, s>>>(x, y, g.height, (int)row_vecs, vpp,
+                                                       (int)chunks);
+  return (int)cudaGetLastError();
+}
+
+template <int LANES>
+int launch_shift_sum(const uint4* x, uint4* y, const Geometry& g, int vpp, int batch,
+                     cudaStream_t s) {
+  static_assert(kShiftCols == kTileCols, "shift_only tiles columns as Geometry::col_tiles does");
+  static bool smem_allowed = false;
+  const cudaError_t err = vst::allow_smem(pad_shift_sum<LANES>, kShiftSmem, smem_allowed);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(g.col_tiles * ((g.height + kShiftRows - 1) / kShiftRows),
+                  (vpp + kSliceVecs - 1) / kSliceVecs, batch);
+  pad_shift_sum<LANES><<<grid, kHaloThreads, kShiftSmem, s>>>(x, y, g, vpp);
+  return (int)cudaGetLastError();
 }
 
 // f32 modes 0 and 1: chunks of KC input channels through a ring of S stages.
@@ -544,7 +609,6 @@ extern "C" int pad_conv3x3_launch(const void* x, const void* w, void* y, int bat
   }
   Geometry g{height, width, cin, cout, (width + kTileCols - 1) / kTileCols};
   const int row_tiles = (height + kTileRows - 1) / kTileRows;
-  const dim3 grid(g.col_tiles * row_tiles, (cout + kTileN - 1) / kTileN, batch);  // SIMT
   cudaStream_t s = (cudaStream_t)stream;
   const float* xf = static_cast<const float*>(x);
   const float* wf = static_cast<const float*>(w);
@@ -552,27 +616,23 @@ extern "C" int pad_conv3x3_launch(const void* x, const void* w, void* y, int bat
   const __nv_bfloat16* xh = static_cast<const __nv_bfloat16*>(x);
   const __nv_bfloat16* wh = static_cast<const __nv_bfloat16*>(w);
   __nv_bfloat16* yh = static_cast<__nv_bfloat16*>(y);
+  const uint4* xv = static_cast<const uint4*>(x);
+  uint4* yv = static_cast<uint4*>(y);
+  const int vpp = cin / (bf16 ? 8 : 4);  // 16-byte vectors a pixel
   switch (4 * bf16 + mode) {
     case kFull:
       return launch_f32<kFull>(xf, wf, yf, g, batch, s);
     case kMxuOnly:
       return launch_f32<kMxuOnly>(xf, wf, yf, g, batch, s);
     case kShiftOnly:
-      pad_conv3x3_simt<float, kShiftOnly><<<grid, kThreads, 0, s>>>(xf, yf, g);
-      break;
-    case kDmaOnly:
-      pad_conv3x3_simt<float, kDmaOnly><<<grid, kThreads, 0, s>>>(xf, yf, g);
-      break;
+      return launch_shift_sum<4>(xv, yv, g, vpp, batch, s);
     case 4 + kFull:
       return launch_wgmma<kFull>(xh, wh, yh, g, row_tiles, batch, s);
     case 4 + kMxuOnly:
       return launch_wgmma<kMxuOnly>(xh, wh, yh, g, row_tiles, batch, s);
     case 4 + kShiftOnly:
-      pad_conv3x3_simt<__nv_bfloat16, kShiftOnly><<<grid, kThreads, 0, s>>>(xh, yh, g);
-      break;
-    default:
-      pad_conv3x3_simt<__nv_bfloat16, kDmaOnly><<<grid, kThreads, 0, s>>>(xh, yh, g);
-      break;
+      return launch_shift_sum<8>(xv, yv, g, vpp, batch, s);
+    default:  // dma_only: a byte copy, the same in both dtypes
+      return launch_copy(xv, yv, g, vpp, batch, s);
   }
-  return (int)cudaGetLastError();
 }

@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import collections
 import ctypes
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -71,37 +72,61 @@ def pad_conv3x3_plain(x: torch.Tensor, w: torch.Tensor, mode: str = "full") -> t
 
 
 def _check(x: torch.Tensor, w: torch.Tensor, mode: str) -> None:
+    # each attribute read once: this runs on every launch
     if mode not in MODES:
         raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
-    if x.dim() != 4 or w.dim() != 4 or w.shape[:2] != (3, 3) or w.shape[2] != x.shape[3]:
+    xs, ws = x.shape, w.shape
+    if len(xs) != 4 or len(ws) != 4 or ws[0] != 3 or ws[1] != 3 or ws[2] != xs[3]:
         raise ValueError(f"x must be (N, H, W, C_in) and w (3, 3, C_in, C_out), "
-                         f"got {tuple(x.shape)} and {tuple(w.shape)}")
-    if x.dtype not in DTYPES or w.dtype != x.dtype:
+                         f"got {tuple(xs)} and {tuple(ws)}")
+    dtype = x.dtype
+    if dtype not in DTYPES or w.dtype != dtype:
         raise TypeError(f"pad_conv3x3 takes float32 or bfloat16 x and w of one dtype, "
-                        f"got {x.dtype} and {w.dtype}")
-    if x.device != w.device or x.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"x and w on one cpu or cuda device, got {x.device} and {w.device}")
+                        f"got {dtype} and {w.dtype}")
+    device = x.device
+    if w.device != device or device.type not in ("cpu", "cuda"):
+        raise ValueError(f"x and w on one cpu or cuda device, got {device} and {w.device}")
     if not (x.is_contiguous() and w.is_contiguous()):
         raise ValueError("pad_conv3x3 takes contiguous (channels-last) x and contiguous w")
-    if min(x.shape[1:3]) < 2 or x.shape[3] % 8 or w.shape[3] % 8:
+    if xs[1] < 2 or xs[2] < 2 or xs[3] % 8 or ws[3] % 8:
         raise ValueError(f"pad_conv3x3 needs H, W >= 2 and channels in multiples of 8, "
-                         f"got x {tuple(x.shape)}, w {tuple(w.shape)}")
+                         f"got x {tuple(xs)}, w {tuple(ws)}")
+
+
+# per (mode, dtype): the kernel's mode index, its bf16 flag and the launch-count key
+_LAUNCH = {(mode, dtype): (index, int(dtype == torch.bfloat16), (mode, dtype_name(dtype)))
+           for index, mode in enumerate(MODES) for dtype in DTYPES}
+
+
+def launch_args(x: torch.Tensor, w: torch.Tensor, mode: str):
+    """For x and w that passed ``_check``: the kernel's integer arguments
+    (N, H, W, C_in, C_out, mode index, bf16 flag) and the launch-count key.
+    The kernel indexes in 64 bits, so no size is refused here."""
+    index, bf16, key = _LAUNCH[mode, x.dtype]
+    N, H, W, cin = x.shape
+    return (N, H, W, cin, out_channels(w, mode), index, bf16), key
+
+
+@functools.cache
+def _kernel():
+    """The kernel's C entry point, built, loaded and resolved once."""
+    return _nvcc.load("pad_conv3x3", _ENTRY_POINTS)[0].pad_conv3x3_launch
 
 
 def _launch(x: torch.Tensor, w: torch.Tensor, mode: str) -> torch.Tensor:
+    # the kernel runs on the current device, which a stream handle of 0 (the
+    # default stream) does not name
+    if x.get_device() != torch.cuda.current_device():
+        raise ValueError(f"pad_conv3x3: x is on {x.device}, the current device is "
+                         f"cuda:{torch.cuda.current_device()}; launch under torch.cuda.device")
     _nvcc.check_aligned(x, w)
-    lib, _ = _nvcc.load("pad_conv3x3", _ENTRY_POINTS)
-    N, H, W, cin = x.shape
-    cout = out_channels(w, mode)
-    y = torch.empty((N, H, W, cout), dtype=x.dtype, device=x.device)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.pad_conv3x3_launch(x.data_ptr(), w.data_ptr(), y.data_ptr(), N, H, W, cin,
-                                     cout, MODES.index(mode), int(x.dtype == torch.bfloat16),
-                                     stream)
+    args, key = launch_args(x, w, mode)
+    y = torch.empty_like(x) if args[4] == args[3] else x.new_empty((*args[:3], args[4]))
+    err = _kernel()(x.data_ptr(), w.data_ptr(), y.data_ptr(), *args,
+                    torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"pad_conv3x3 kernel launch failed: cudaError {err}")
-    pad_conv3x3.launches[(mode, dtype_name(x.dtype))] += 1
+    pad_conv3x3.launches[key] += 1
     return y
 
 

@@ -6,11 +6,14 @@
 For float32 and bfloat16: a chain of ``N_CONV`` reflect-pad + 3×3 convs at
 the bench's trunk shape (x (1, 109, 256, 128) channels-last, w (3, 3, 128,
 128) × 0.02, from seed 0) through the ``pad_conv3x3`` kernel. Prints ms per
-conv (best of 3 windows of 20 chains) and TF/s from the script's FLOP count
-27904·9·C²·2, beside the plain version's and the library yardstick's ms
-per conv and the bound. The script's four variants (tap9, im2col, ztrick,
-row3) are four ways to feed one function to the TPU's matrix unit; the
-kernel is their one Hopper counterpart. Float32 runs with TF32 off.
+conv (best of 3 windows of 20 chains launched from the host) and TF/s from
+the script's FLOP count 27904·9·C²·2; the kernel's device time alone
+(``device_ms``: one CUDA graph over copies of x that are cold in L2) and the
+host's time to issue a call (``host_ms``); beside them the plain version's
+and the library yardstick's ms per conv and the bound. The script's four
+variants (tap9, im2col, ztrick, row3) are four ways to feed one function to
+the TPU's matrix unit; the kernel is their one Hopper counterpart. Float32
+runs with TF32 off.
 """
 
 from __future__ import annotations
@@ -24,13 +27,14 @@ import torch.nn.functional as F
 
 from vst_torch import set_f32_precision
 from vst_torch.core.roofline import PEAK_F32_OPS_PER_S, bound, product_ops_per_s
-from vst_torch.core.timing import windows_ms
+from vst_torch.core.timing import cold_pool, graph_ms, host_ms, windows_ms
 from vst_torch.kernels.pad_conv3x3 import (DTYPES, dtype_name, out_channels, pad_conv3x3,
                                            pad_conv3x3_plain)
 
 H, W, C = 109, 256, 128
 N_CONV = 10
 PIXELS = 27904  # H·W, as the script counts them
+GRAPH_ITERS = 20  # replays a window of device_ms
 
 
 def trunk_inputs(dtype: torch.dtype, device, seed: int = 0,
@@ -82,6 +86,15 @@ def per_conv_ms(conv, x: torch.Tensor) -> float:
     return min(windows_ms(chain, x, 20)) / N_CONV
 
 
+def kernel_times(conv, x: torch.Tensor, pool) -> Dict[str, float]:
+    """The kernel's three times: ``ms_per_conv`` (host-launched chains,
+    ``per_conv_ms``), ``device_ms`` (one CUDA graph over ``pool``, inputs
+    cold in L2, ``graph_ms``) and ``host_ms`` (the host's time to issue one
+    call, ``host_ms``)."""
+    return {"ms_per_conv": per_conv_ms(conv, x), "device_ms": graph_ms(conv, pool, GRAPH_ITERS),
+            "host_ms": host_ms(conv, x)}
+
+
 @torch.no_grad()
 def run(device="cuda") -> List[Dict]:
     set_f32_precision()
@@ -89,11 +102,11 @@ def run(device="cuda") -> List[Dict]:
     for dtype in DTYPES:
         x, w = trunk_inputs(dtype, device)
         w_lib = library_weight(w)
-        ms = per_conv_ms(lambda v: pad_conv3x3(v, w), x)
+        times = kernel_times(lambda v: pad_conv3x3(v, w), x, cold_pool(x))
         bound_ms, bound_by = conv_bound(x, w)
         records.append({
-            "dtype": dtype_name(dtype), "shape": [1, H, W, C], "n_conv": N_CONV,
-            "ms_per_conv": ms, "tflops": PIXELS * 9 * C * C * 2 / 1e9 / ms,
+            "dtype": dtype_name(dtype), "shape": [1, H, W, C], "n_conv": N_CONV, **times,
+            "tflops": PIXELS * 9 * C * C * 2 / 1e9 / times["ms_per_conv"],
             "plain_ms_per_conv": per_conv_ms(lambda v: pad_conv3x3_plain(v, w), x),
             "library_ms_per_conv": per_conv_ms(lambda v: library_pad_conv3x3(v, w_lib), x),
             "bound_ms": bound_ms, "bound_by": bound_by})
@@ -105,7 +118,8 @@ def main() -> None:
         raise SystemExit("bisect_im2col: needs a CUDA device")
     for rec in run():
         print(f"--- {rec['dtype']} ---")
-        print(f"  pad_conv3x3: {rec['ms_per_conv']:.4f} ms/conv ({rec['tflops']:.1f} TF/s); "
+        print(f"  pad_conv3x3: {rec['ms_per_conv']:.4f} ms/conv ({rec['tflops']:.1f} TF/s), "
+              f"device {rec['device_ms']:.4f}, host {rec['host_ms']:.4f}; "
               f"plain {rec['plain_ms_per_conv']:.4f}; cuDNN {rec['library_ms_per_conv']:.4f}; "
               f"bound {rec['bound_ms']:.4f} ({rec['bound_by']})")
         print(json.dumps(rec))

@@ -3,13 +3,16 @@
 
     python -m vst_torch.probes.bisect_kernel_cost
 
-The ``pad_conv3x3`` kernel in its four modes at the trunk shape, each timed
-over a chain of ``N_CONV`` convs (best of 3 windows of 20 chains), for
-float32 and bfloat16. On Hopper the split is:
+The ``pad_conv3x3`` kernel in its four modes at the trunk shape, for
+float32 and bfloat16, each timed three ways (``bisect_im2col.kernel_times``):
+over a host-launched chain of ``N_CONV`` convs (best of 3 windows of 20
+chains, ``ms_per_conv``), on the device alone (``device_ms``, a CUDA graph
+over inputs cold in L2) and on the host alone (``host_ms``). On Hopper the
+split is:
 
-- ``dma_only``: the device-memory → shared-memory load of the reflected
-  halo, and one store;
-- ``shift_only``: plus the 9 shifted shared-memory reads, summed;
+- ``dma_only``: the reflected input read once and stored, a gather copy;
+- ``shift_only``: the reflected halo staged in shared memory, the 9 shifted
+  reads summed;
 - ``mxu_only``: the FMA or tensor-core products, all from one unshifted tap;
 - ``full``: the conv.
 
@@ -32,8 +35,10 @@ import torch.nn.functional as F
 
 from vst_torch import set_f32_precision
 from vst_torch.kernels.pad_conv3x3 import DTYPES, MODES, dtype_name, pad_conv3x3, pad_conv3x3_plain
-from vst_torch.probes.bisect_im2col import (C, H, N_CONV, W, conv_bound, library_pad_conv3x3,
-                                            library_weight, per_conv_ms, trunk_inputs)
+from vst_torch.core.timing import cold_pool
+from vst_torch.probes.bisect_im2col import (C, H, N_CONV, W, conv_bound, kernel_times,
+                                            library_pad_conv3x3, library_weight, per_conv_ms,
+                                            trunk_inputs)
 
 
 def library_arg(w: torch.Tensor, mode: str) -> Optional[torch.Tensor]:
@@ -70,12 +75,13 @@ def run(device="cuda") -> List[Dict]:
     records = []
     for dtype in DTYPES:
         x, w = trunk_inputs(dtype, device)
+        pool = cold_pool(x)
         rec = {"dtype": dtype_name(dtype), "shape": [1, H, W, C], "n_conv": N_CONV, "modes": {}}
         for mode in MODES:
             bound_ms, bound_by = conv_bound(x, w, mode)
             arg = library_arg(w, mode)
             rec["modes"][mode] = {
-                "ms_per_conv": per_conv_ms(lambda v: pad_conv3x3(v, w, mode), x),
+                **kernel_times(lambda v: pad_conv3x3(v, w, mode), x, pool),
                 "plain_ms_per_conv": per_conv_ms(lambda v: pad_conv3x3_plain(v, w, mode), x),
                 "library_ms_per_conv": per_conv_ms(lambda v: library_mode(v, arg, mode), x),
                 "bound_ms": bound_ms, "bound_by": bound_by}
@@ -89,7 +95,8 @@ def main() -> None:
     for rec in run():
         print(f"--- {rec['dtype']} ---")
         for mode, m in rec["modes"].items():
-            print(f"  {mode:12s} {m['ms_per_conv']:.4f} ms/conv; plain {m['plain_ms_per_conv']:.4f}; "
+            print(f"  {mode:12s} {m['ms_per_conv']:.4f} ms/conv, device {m['device_ms']:.4f}, "
+                  f"host {m['host_ms']:.4f}; plain {m['plain_ms_per_conv']:.4f}; "
                   f"library {m['library_ms_per_conv']:.4f}; bound {m['bound_ms']:.4f} "
                   f"({m['bound_by']})")
         print(json.dumps(rec))
