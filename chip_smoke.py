@@ -13,7 +13,9 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
    CPU-test shape, radius 3, 1 and 2 levels, and windows all outside their
    maps; its time beside the plain version's, the library yardstick's (the
    reference CorrBlock's F.grid_sample per level), its bound and the bytes
-   of the 32-byte sectors its windows touch; the autograd.Function's
+   of the 32-byte sectors its windows touch, its device time alone
+   (device_ms, a CUDA graph of calls each reading more than L2 holds) and
+   the host's time to issue a call (host_ms); the autograd.Function's
    gradient against the plain version's (≤ 1e-5).
 3. stylize: FastStyleNet (3 styles) at 1×3×436×1024, chained DT.
 4. raft: full RAFT, 20 iterations, at 4×3×432×1024 through the kernel;
@@ -22,7 +24,22 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
 5. main_path: evaluate_sintel_faststyle on a seeded synthetic 8-frame clip
    at 432×1024, styles (0, 1, 2), RAFT through the kernel; first the same
    harness at 64×96 against the plain lookup (TCL ≤ 1e-4 relative).
-6. trunk_conv: pad_conv3x3 (modes full and mxu_only) against its plain
+6. eval_sintel: `vst_torch.cli eval-sintel` at 436×1024 for johnson and
+   ruder (the synthetic clip with its flow oracle, 3 styles); then
+   evaluate_sintel_ruder with RAFT (20 iterations, through the kernel) on
+   the 8-frame 432×1024 clip, after the same driver at 64×96 against the
+   plain lookup (TCL ≤ 1e-4 relative, every value positive).
+7. raft_bf16: RAFT's bf16 encoders and update block timed on cuDNN and on
+   PyTorch's own path at 4×3×432×1024; `vst_torch.cli bench-raft` with all
+   five variants at 436×1024 (its windows of 5); per bf16 variant, one pair
+   through the kernel against the same net with the plain lookup, bit for
+   bit (max |Δ| = 0); per variant, the pair's eager time beside its device
+   time alone (a CUDA graph) and the host's time to issue it.
+8. stylize_video: `vst_torch.cli stylize-video` at 436×1024 on 24 synthetic
+   frames, f32 at batch 1 and bf16 at batch 8: 24 PNGs each, frames/s; its
+   timed loop 5 times more, with the net and with the copies alone, and the
+   net's device time per frame.
+9. trunk_conv: pad_conv3x3 (modes full and mxu_only) against its plain
    version at the trunk shape 1×109×256×128, a ragged 2×13×37×64, the
    CPU-test shapes, C_in ≠ C_out, C_out = 8 and 136, batch 3 and H = 2, f32
    (≤ 1e-4 absolute) and bf16 (≤ 1e-3 + 2⁻⁷·|plain|); then the probe
@@ -30,21 +47,21 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
    chain, the device time alone (device_ms, a CUDA graph over inputs cold
    in L2), the host's time to issue a call (host_ms), plain, cuDNN and
    bound.
-7. kernel_cost: shift_only and dma_only against their plain versions at
+10. kernel_cost: shift_only and dma_only against their plain versions at
    the same ten shapes, bit for bit (max |Δ| = 0: the same f32 sums in the
    same order, one rounding), then the probe
    vst_torch.probes.bisect_kernel_cost, the four modes timed as in phase 6,
    each beside one library call that computes it.
-8. gemm_rate: the kernel against its plain version at every (K, N) of the
+11. gemm_rate: the kernel against its plain version at every (K, N) of the
    sweep (f32 ≤ 1e-5·max|y|, bf16 ≤ 2⁻⁷·max|y|), then the probe
    vst_torch.probes.bisect_mxu: ms, TF/s, bound, one cuBLAS call of depth
    64·K (library_ms) and 64 × cuBLAS (library_x64_ms); the kernels line
    lists K = N = 128 and K = 1152, N = 128, each with its own max |Δ| and
    the launches of its timing.
-9. bench: vst_torch.bench on f32_b1, bf16_b1 and bf16_b8 (eager chain and
+12. bench: vst_torch.bench on f32_b1, bf16_b1 and bf16_b8 (eager chain and
    CUDA-graph chain), and `vst_torch.cli bench-raft` on its f32 variant.
 
-Phases 5–9 each drive one path with the kernels' launch counts set to 0
+Phases 5–12 each drive one path with the kernels' launch counts set to 0
 just before it and read just after; a kernel of the path that was never
 launched fails the run. Then the card's name and power limit (nvidia-smi),
 the kernels line and the result line. Float32 with TF32 off. Weights and
@@ -55,6 +72,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import subprocess
 import sys
 import tempfile
@@ -65,10 +83,14 @@ import torch
 import torch.nn.functional as F
 
 from vst_torch import bench, set_f32_precision
+from vst_torch.cli.__main__ import (RAFT_VARIANTS, source_frames, stylize_frames,
+                                    video_stylizer)
 from vst_torch.cli.__main__ import main as cli_main
+from vst_torch.cli.__main__ import parser as cli_parser
 from vst_torch.core.roofline import PEAK_BYTES_PER_S, PEAK_F32_OPS_PER_S
-from vst_torch.core.timing import chain_ms
-from vst_torch.eval.drivers import evaluate_sintel_faststyle, faststyle_stylize_fn
+from vst_torch.core.timing import chain_ms, cold_pool, graph_ms, host_ms, windows_ms
+from vst_torch.eval.drivers import (evaluate_sintel_faststyle, evaluate_sintel_ruder,
+                                    faststyle_stylize_fn)
 from vst_torch.eval.sintel import SintelVideo, make_tcl_program
 from vst_torch.flow.corr import build_pyramid, lookup_pyramid
 from vst_torch.flow.raft import RAFT, coords_grid
@@ -79,9 +101,10 @@ from vst_torch.kernels import pad_conv3x3 as pad_conv3x3_module
 from vst_torch.kernels.corr_lookup import corr_lookup
 from vst_torch.kernels.gemm_rate import gemm_rate, gemm_rate_plain
 from vst_torch.kernels.pad_conv3x3 import MODES, dtype_name, pad_conv3x3, pad_conv3x3_plain
-from vst_torch.models.faststyle import FastStyleNet
-from vst_torch.nn.conv import without_cudnn
+from vst_torch.nn.conv import cudnn_enabled
+from vst_torch.ops.image import InputPadder
 from vst_torch.probes import bisect_im2col, bisect_kernel_cost, bisect_mxu
+from vst_torch.train.registry import method_net
 
 RADIUS = 4
 LEVELS = 4
@@ -99,6 +122,12 @@ CONV_EXACT_MODES = ("shift_only", "dma_only")
 # 64·1152 terms in another order; bf16 one rounding of the f32 sum
 GEMM_TOL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -7}
 DTYPES = (torch.float32, torch.bfloat16)
+TCL_KEYS = ("TCL-ST", "TCL-LT")
+SINTEL_HW = (436, 1024)  # a Sintel frame; the eval harness crops it to 432 rows
+CLIP_HW = (432, 1024)
+VIDEO_FRAMES = 24
+VIDEO_PASSES = 5
+BF16_RAFT_VARIANTS = ("bf16_enc", "bf16_full", "bf16_full_pad64")
 KERNEL_SOURCES = ("corr_lookup", "pad_conv3x3", "gemm_rate")
 # f32 operations per lookup output: level scale and offset (2 per axis), floor
 # fractions and complements (4), 4 corner weights, 4 products, 3 sums
@@ -218,17 +247,24 @@ def to_nchw(frames, dev):
     return torch.from_numpy(np.ascontiguousarray(frames.transpose(0, 3, 1, 2))).to(dev)
 
 
-def seeded_raft(iters, dev, seed=0, lookup=corr_lookup):
+def seeded_raft(iters, dev, seed=0, lookup=corr_lookup, encoder_dtype=None, update_dtype=None):
     torch.manual_seed(seed)
-    return RAFT(iters=iters, lookup=lookup).to(dev).eval()
+    return RAFT(iters=iters, lookup=lookup, encoder_dtype=encoder_dtype,
+                update_dtype=update_dtype).to(dev).eval()
 
 
-def seeded_style_net(dev, seed=0):
+def seeded_style_net(dev, seed=0, method="johnson"):
     torch.manual_seed(seed)
-    net = FastStyleNet(n_styles=3)
+    net = method_net(method, 3)
     with torch.no_grad():  # spread the random net's output over [0, 255]
         net.deconv3.conv2d.weight.mul_(300.0)
     return net.to(dev).eval()
+
+
+def finite_positive(means, what):
+    if not all(math.isfinite(v) and v > 0 for v in means.values()):
+        raise AssertionError(f"{what}: means not finite and positive: {means}")
+    return means
 
 
 def phase_build():
@@ -292,6 +328,17 @@ def phase_kernel(dev):
                 pyramid, coords, r)
             entry["sector_bytes"] = lookup_sector_bytes(pyramid, coords, r)
             entry["sector_ms"] = entry["sector_bytes"] / PEAK_BYTES_PER_S * 1e3
+            with torch.no_grad():
+                # two calls, each on its own copy of the maps, keyed by the
+                # level-0 map (the graph's inputs, 2 × 0.76 GB): the windows
+                # they read, 2 × sector_bytes, are more than twice L2
+                copy = [t.clone() for t in pyramid]
+                pyramids = {id(pyramid[0]): pyramid, id(copy[0]): copy}
+                entry["device_ms"] = graph_ms(
+                    lambda lvl0: corr_lookup(pyramids[id(lvl0)], coords, r),
+                    [pyramid[0], copy[0]], 20)
+                entry["host_ms"] = host_ms(lambda c: corr_lookup(pyramid, c, r), coords)
+                del pyramids, copy
             timing = entry
         record["shapes"][name] = entry
         del pyramid, f1, f2, got, want
@@ -353,7 +400,7 @@ def phase_raft(dev):
         # (without cuDNN); the update block also with cuDNN, for comparison
         x1 = 2.0 * (i1 / 255.0) - 1.0
         x2 = 2.0 * (i2 / 255.0) - 1.0
-        with without_cudnn():
+        with cudnn_enabled(False):
             fmap1, fmap2 = raft.fnet(torch.cat([x1, x2], 0)).chunk(2, 0)
             net, inp = torch.split(raft.cnet(x1), [128, 128], 1)
             net, inp = torch.tanh(net), F.relu(inp)
@@ -391,22 +438,30 @@ def phase_raft(dev):
     emit(record)
 
 
+def small_reference_check(dev, evaluate, what):
+    """``evaluate(videos, raft_apply)``, a Sintel driver, on a 7-frame 64×96
+    clip with RAFT (4 iterations) through the kernel and through the plain
+    lookup, same weights: every TCL value within ``TCL_RTOL`` relative and
+    positive. Returns the largest relative difference."""
+    small = SintelVideo("small", synthetic_clip(7, (64, 96), seed=2))
+    vals = []
+    for lookup in (corr_lookup, lookup_pyramid):
+        raft = seeded_raft(4, dev, seed=2, lookup=lookup)
+        res = evaluate([small], lambda a, b: raft(a, b))
+        vals.append([res[k][f"{k}_small_s{d}"] for k in TCL_KEYS for d in (1, 2, 3)])
+    rel = max(abs(a - b) / max(abs(b), 1e-12) for a, b in zip(*vals))
+    if rel > TCL_RTOL or not all(v > 0 for v in vals[1]):
+        raise AssertionError(f"{what}: small-input TCL kernel vs plain: {rel} > {TCL_RTOL} "
+                             f"or not positive: {vals}")
+    return rel
+
+
 def phase_main_path(dev):
     style_net = seeded_style_net(dev)
     sd = style_net.state_dict()
-
-    # a reference on a small input: the same harness with the plain lookup
-    small = SintelVideo("small", synthetic_clip(7, (64, 96), seed=2))
-    small_vals = []
-    for lookup in (corr_lookup, lookup_pyramid):
-        raft = seeded_raft(4, dev, seed=2, lookup=lookup)
-        res = evaluate_sintel_faststyle(style_net, sd, [small], lambda a, b: raft(a, b),
-                                        dt_iters=1, device=dev)
-        small_vals.append([res[k][f"{k}_small_s{d}"] for k in ("TCL-ST", "TCL-LT")
-                           for d in (1, 2, 3)])
-    rel = max(abs(a - b) / max(abs(b), 1e-12) for a, b in zip(*small_vals))
-    if rel > TCL_RTOL or not all(v > 0 for v in small_vals[1]):
-        raise AssertionError(f"small-input TCL kernel vs plain: {rel} > {TCL_RTOL}")
+    rel = small_reference_check(
+        dev, lambda videos, raft_apply: evaluate_sintel_faststyle(
+            style_net, sd, videos, raft_apply, dt_iters=1, device=dev), "main path")
 
     raft = seeded_raft(20, dev)
     video = SintelVideo("synthetic", synthetic_clip(8, (432, 1024), seed=3))
@@ -425,15 +480,172 @@ def phase_main_path(dev):
     seconds = time.perf_counter() - t0
     launches = corr_lookup.launches
 
-    means = {k: res[k][f"{k}_mean"] for k in ("TCL-ST", "TCL-LT", "DT")}
-    if not all(math.isfinite(v) for v in means.values()) or min(means.values()) <= 0:
-        raise AssertionError(f"main path means not finite and positive: {means}")
+    means = finite_positive({k: res[k][f"{k}_mean"] for k in ("TCL-ST", "TCL-LT", "DT")},
+                            "main path")
     if launches <= 0:
         raise AssertionError("the main path never launched the corr_lookup kernel")
     emit({"phase": "main_path", "clip": [8, 432, 1024], "styles": [0, 1, 2],
           "raft_iters": 20, **means, "corr_lookup_launches": launches, "seconds": seconds,
           "tcl2_ms": tcl2_ms, "small_reference_max_rel_err": rel})
     return launches
+
+
+def phase_eval_sintel(dev):
+    """The eval-sintel command for Johnson and Ruder at the Sintel size,
+    then Ruder's driver through RAFT and the kernel."""
+    record = {"phase": "eval_sintel", "cli": {}}
+    for method in ("johnson", "ruder"):
+        with tempfile.TemporaryDirectory() as out_dir:
+            t0 = time.perf_counter()
+            res = cli_main(["eval-sintel", "--method", method, "--hw", *map(str, SINTEL_HW),
+                            "--out-dir", out_dir])
+            seconds = time.perf_counter() - t0
+            written = sorted(os.listdir(out_dir))
+        means = finite_positive({k: res[k][f"{k}_mean"] for k in res}, f"eval-sintel {method}")
+        record["cli"][method] = {**means, "seconds": seconds, "written": written}
+
+    net = seeded_style_net(dev, seed=4, method="ruder")
+    pre = seeded_style_net(dev, seed=5)
+    sd, pre_sd = net.state_dict(), pre.state_dict()
+
+    def ruder(videos, raft_apply):
+        return evaluate_sintel_ruder(net, sd, pre, pre_sd, videos, raft_apply, device=dev)
+
+    rel = small_reference_check(dev, ruder, "Ruder")
+    raft = seeded_raft(20, dev)
+    video = SintelVideo("synthetic", synthetic_clip(8, CLIP_HW, seed=3))
+    reset_counts()
+    t0 = time.perf_counter()
+    res = ruder([video], lambda a, b: raft(a, b))
+    seconds = time.perf_counter() - t0
+    launches = corr_lookup.launches
+    if launches <= 0:
+        raise AssertionError("evaluate_sintel_ruder never launched the corr_lookup kernel")
+    record["ruder_raft"] = {"clip": [8, *CLIP_HW], "styles": [0, 1, 2], "raft_iters": 20,
+                            **finite_positive({k: res[k][f"{k}_mean"] for k in res},
+                                              "Ruder through RAFT"),
+                            "seconds": seconds, "corr_lookup_launches": launches,
+                            "small_reference_max_rel_err": rel}
+    emit(record)
+    return launches
+
+
+def phase_raft_bf16(dev):
+    """bf16 RAFT: its convolutions on cuDNN and off, bench-raft's five
+    variants, and each bf16 variant through the kernel against the plain
+    lookup."""
+    bf16 = torch.bfloat16
+    record = {"phase": "raft_bf16", "cudnn_vs_native_ms": {}}
+    clip = synthetic_clip(5, CLIP_HW) * 255.0
+    x1 = 2.0 * (to_nchw(clip[[0, 1, 2, 3]], dev) / 255.0) - 1.0
+    x2 = 2.0 * (to_nchw(clip[[1, 2, 3, 4]], dev) / 255.0) - 1.0
+    raft = seeded_raft(20, dev, encoder_dtype=bf16, update_dtype=bf16)
+    with torch.no_grad():
+        fmap1, fmap2 = raft.fnet(torch.cat([x1, x2], 0)).float().chunk(2, 0)
+        net, inp = torch.split(raft.cnet(x1).float(), [128, 128], 1)
+        net, inp = torch.tanh(net), F.relu(inp)
+        pyramid = build_pyramid(fmap1, fmap2, LEVELS)
+        coords = coords_grid(4, CLIP_HW[0] // 8, CLIP_HW[1] // 8, device=dev)
+        corr = corr_lookup(pyramid, coords, RADIUS)
+        parts = {"fnet_8_frames": lambda: raft.fnet(torch.cat([x1, x2], 0)),
+                 "cnet_4_frames": lambda: raft.cnet(x1),
+                 "update_block_x20": lambda: raft.update_block(net, inp, corr, coords - coords)}
+        for part, fn in parts.items():
+            reps = 10 if part == "update_block_x20" else 3
+            scale = 20 if part == "update_block_x20" else 1
+            times = {}
+            for cudnn in (False, True):
+                with cudnn_enabled(cudnn):
+                    times["cudnn" if cudnn else "native"] = scale * time_ms(fn, reps, 1)
+            record["cudnn_vs_native_ms"][part] = times
+        del pyramid, corr, fmap1, fmap2
+
+    reset_counts()
+    with tempfile.TemporaryDirectory() as out_dir:  # the command's own windows of 5 pairs
+        cli_main(["bench-raft", "--hw", *map(str, SINTEL_HW), "--out-dir", out_dir])
+        with open(f"{out_dir}/raft_timing.json") as f:
+            record["bench_raft"] = json.load(f)
+    record["bench_raft_corr_lookup_launches"] = corr_lookup.launches
+    if corr_lookup.launches <= 0:
+        raise AssertionError("bench-raft never launched the corr_lookup kernel")
+
+    # each bf16 variant's pair through the kernel against the plain lookup;
+    # then every variant's pair split: the eager call as bench-raft times it
+    # (mean of 5), the device alone (a CUDA graph of one pair call per input
+    # of a cold pool, best of 3 replays), the host's time to issue one call
+    pair = synthetic_clip(2, SINTEL_HW, seed=6) * 255.0
+    img1, img2 = to_nchw(pair[0:1], dev), to_nchw(pair[1:2], dev)
+    record["variants"] = {}
+    with torch.no_grad():
+        for name, (enc, upd, mult) in RAFT_VARIANTS.items():
+            fast = seeded_raft(20, dev, encoder_dtype=enc, update_dtype=upd)
+            i1, i2 = InputPadder(img1.shape, mult=mult).pad(img1, img2)
+            a, b = torch.cat([i1, i2], 0), torch.cat([i2, i1], 0)
+            entry = record["variants"][name] = {}
+            if name in BF16_RAFT_VARIANTS:
+                plain = seeded_raft(20, dev, lookup=lookup_pyramid, encoder_dtype=enc,
+                                    update_dtype=upd)
+                reset_counts()
+                flow_k = fast(a, b)[1]
+                torch.cuda.synchronize()
+                launches = corr_lookup.launches
+                flow_p = plain(a, b)[1]
+                err = (flow_k - flow_p).abs().max().item()
+                if launches <= 0 or err != KERNEL_ERR or not torch.isfinite(flow_k).all():
+                    raise AssertionError(f"bf16 RAFT {name}: {launches} launches, kernel vs "
+                                         f"plain lookup max |Δ| {err} != {KERNEL_ERR}")
+                entry.update({"corr_lookup_launches": launches, "max_abs_err": err,
+                              "max_abs_flow_px": flow_p.abs().max().item(),
+                              "flow_dtype": str(flow_k.dtype)})
+                del plain, flow_k, flow_p
+            entry["pair_ms"] = {"eager": time_ms(lambda: fast(a, b), 5, 1),
+                                "device": graph_ms(lambda t: fast(t, b)[1], cold_pool(a), 1),
+                                "host": host_ms(lambda t: fast(t, b), a, calls=1)}
+            del fast
+    emit(record)
+    return {name: v["corr_lookup_launches"] for name, v in record["variants"].items()
+            if "corr_lookup_launches" in v}
+
+
+def png_signature(path):
+    with open(path, "rb") as f:
+        return f.read(8)
+
+
+def phase_stylize_video(dev):
+    """The stylize-video command on 24 synthetic Sintel-sized frames; then
+    its timed loop ``VIDEO_PASSES`` times more, with the net and with the
+    identity in its place (the copies and the host's work alone), and the
+    net's device time per frame on a chunk that stays on the card."""
+    record = {"phase": "stylize_video", "runs": {}}
+    for flags, batch in (((), 1), (("--bf16",), 8)):
+        argv = ["stylize-video", "--hw", *map(str, SINTEL_HW), "--n-frames", str(VIDEO_FRAMES),
+                "--batch-size", str(batch), *flags]
+        with tempfile.TemporaryDirectory() as out_dir:
+            line = cli_main([*argv, "--out-dir", out_dir])
+            written = sorted(os.listdir(out_dir))
+            pngs = [f for f in written if f.endswith(".png")]
+            signatures = {png_signature(os.path.join(out_dir, f)) for f in pngs}
+        if (len(pngs) != VIDEO_FRAMES or line["frames"] != VIDEO_FRAMES
+                or signatures != {b"\x89PNG\r\n\x1a\n"}
+                or not (math.isfinite(line["frames_per_sec"]) and line["frames_per_sec"] > 0)):
+            raise AssertionError(f"stylize-video {line}: wrote {written}")
+        args = cli_parser().parse_args(argv)
+        frames = source_frames(args)
+        stylize, dtype = video_stylizer(args, dev)
+        with torch.no_grad():
+            x = torch.from_numpy(frames[:batch]).to(dev).permute(0, 3, 1, 2).to(dtype).contiguous()
+            fps = {what: sorted(VIDEO_FRAMES / stylize_frames(fn, frames, batch, dtype, dev)[1]
+                                for _ in range(VIDEO_PASSES))
+                   for what, fn in (("net", stylize), ("copies_only", lambda y: y))}
+            device_ms = min(windows_ms(stylize, x, 10)) / batch
+        record["runs"][f"{line['dtype']}_b{batch}"] = {
+            **line, "pngs": len(pngs), "other_files": [f for f in written if f not in pngs],
+            "passes_frames_per_sec": fps["net"],
+            "median_frames_per_sec": fps["net"][VIDEO_PASSES // 2],
+            "copies_only_frames_per_sec": fps["copies_only"],
+            "device_ms_per_frame": device_ms}
+    emit(record)
 
 
 def reset_counts() -> None:
@@ -611,6 +823,9 @@ def main() -> int:
     phase_stylize(dev)
     phase_raft(dev)
     launches = phase_main_path(dev)
+    ruder_launches = phase_eval_sintel(dev)
+    bf16_launches = phase_raft_bf16(dev)
+    phase_stylize_video(dev)
     trunk, weighted_errs = phase_trunk_conv(dev)
     cost = phase_kernel_cost(dev, weighted_errs)
     gemm = phase_gemm_rate(dev)
@@ -625,7 +840,10 @@ def main() -> int:
          "replaces": "vst/kernels/pallas_corr.py:87", "launches": launches,
          "max_abs_err": max_err, "ms": timing["kernel_ms"], "plain_ms": timing["plain_ms"],
          "bound_ms": timing["bound_ms"], "bound_by": timing["bound_by"],
-         "library_ms": timing["library_ms"]},
+         "library_ms": timing["library_ms"], "device_ms": timing["device_ms"],
+         "host_ms": timing["host_ms"],
+         "launches_by_path": {"main_path": launches, "eval_sintel_ruder": ruder_launches,
+                              **{f"raft_{k}": v for k, v in bf16_launches.items()}}},
         *kernel_entries("pad_conv3x3", conv_source, "scripts/bisect_im2col.py:20",
                         {f"full_{dt}": per_conv(m) for (_, dt), m in trunk.items()}),
         *kernel_entries("pad_conv3x3", conv_source, "scripts/bisect_kernel_cost.py:15",

@@ -116,11 +116,12 @@ def test_bench_refuses_the_cpu():
 def test_bench_raft_arguments():
     args = parser().parse_args(["bench-raft"])
     assert (tuple(args.hw), args.raft_iters, args.iters, args.device) == ((436, 1024), 20, 5, "cuda")
-    assert args.variants == ["f32", "f32_pad64"]
+    # vst/cli/__main__.py:1067-1071, in vst's order
+    assert args.variants == ["f32", "bf16_enc", "bf16_full", "f32_pad64", "bf16_full_pad64"]
     args = parser().parse_args(["bench-raft", "--variants", "f32", "--hw", "64", "96"])
     assert args.variants == ["f32"] and args.hw == [64, 96]
     with pytest.raises(SystemExit):
-        parser().parse_args(["bench-raft", "--variants", "bf16_full"])
+        parser().parse_args(["bench-raft", "--variants", "bf16_pad64"])
 
 
 def test_bench_raft_on_cpu_writes_its_keys(tmp_path, capsys):
@@ -129,13 +130,19 @@ def test_bench_raft_on_cpu_writes_its_keys(tmp_path, capsys):
     with open(tmp_path / "raft_timing.json") as f:
         res = json.load(f)
     assert json.loads(capsys.readouterr().out.strip().splitlines()[-1]) == res
-    # vst/cli/__main__.py:cmd_bench_raft's keys for the f32 and f32_pad64 variants
+    # vst/cli/__main__.py:cmd_bench_raft's keys: every variant, the slopes of
+    # f32 and bf16_full_pad64, each variant's flow against f32's
+    others = ("bf16_enc", "bf16_full", "f32_pad64", "bf16_full_pad64")
     assert set(res) == {"hw", "iters", "device", "methodology", "weights", "pair_ms_f32",
-                        "pair_ms_f32_x2", "pair_ms_f32_x4", "pair_ms_f32_pad64",
-                        "f32_pad64_vs_f32_epe_mean", "f32_pad64_vs_f32_rel_mean"}
+                        "pair_ms_f32_x2", "pair_ms_f32_x4", "pair_ms_bf16_full_pad64_x2",
+                        "pair_ms_bf16_full_pad64_x4",
+                        *(f"pair_ms_{v}" for v in others),
+                        *(f"{v}_vs_f32_{m}_mean" for v in others for m in ("epe", "rel"))}
     assert res["hw"] == [64, 64] and res["iters"] == 2 and res["device"] == "cpu"
     assert all(res[k] > 0 for k in res if k.startswith("pair_ms_"))
-    assert 0 <= res["f32_pad64_vs_f32_epe_mean"] < float("inf")
+    assert all(0 <= res[f"{v}_vs_f32_epe_mean"] < float("inf") for v in others)
+    # bf16 moves the flow, but far less than the flow itself
+    assert 0 < res["bf16_full_vs_f32_rel_mean"] < 0.2
 
 
 def test_reflect_pad_in_batch_chunks_is_exact(monkeypatch):

@@ -14,6 +14,7 @@ from vst.flow.corr import build_pyramid as jbuild_pyramid
 from vst.flow.corr import lookup_pyramid as jlookup_pyramid
 from vst.kernels.pallas_corr import pallas_lookup_pyramid
 from vst_torch.flow.corr import build_pyramid, lookup_pyramid
+from vst_torch.kernels import corr_lookup as corr_lookup_module
 from vst_torch.kernels.corr_lookup import check_radius, corr_lookup
 
 ATOL = 1e-5
@@ -130,3 +131,24 @@ def test_radius_rule(radius, device, ok):
     else:
         with pytest.raises(ValueError):
             check_radius(radius, torch.device(device))
+
+
+class _OnCard1:
+    """Stands in for a CUDA tensor on card 1 (this machine may have none)."""
+    device = "cuda:1"
+    shape = (1, 2, 8, 16)
+
+    def get_device(self):
+        return 1
+
+
+def test_launch_refuses_inputs_off_the_current_device(monkeypatch):
+    """The wrapper enters no device context: it launches on the current
+    device, so inputs on another card are refused before the kernel is
+    resolved or launched, and no launch is counted."""
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    monkeypatch.setattr(corr_lookup_module, "_kernel", lambda: pytest.fail("kernel resolved"))
+    before = corr_lookup.launches
+    with pytest.raises(ValueError, match="current device"):
+        corr_lookup_module._launch([], _OnCard1(), R)
+    assert corr_lookup.launches == before

@@ -202,3 +202,28 @@ def test_gemm_rate_sweep_and_edges(dev, dtype, tol, M, K, N, reps):
     assert got.shape == (M, N) and got.dtype == dtype
     err = (got.float() - want.float()).abs().max().item()
     assert err <= tol * want.float().abs().max().item()
+
+
+@pytest.mark.parametrize("encoder_dtype,update_dtype", [(torch.bfloat16, None),
+                                                        (torch.bfloat16, torch.bfloat16)],
+                         ids=["bf16_enc", "bf16_full"])
+def test_bf16_raft_through_the_kernel_matches_plain_lookup(dev, encoder_dtype, update_dtype):
+    """Under RAFT's bf16 dtypes the correlation volume and its lookup stay
+    float32, and the kernel is the plain lookup bit for bit, so the two
+    nets' flows agree exactly."""
+    torch.manual_seed(0)
+    fast = RAFT(iters=4, encoder_dtype=encoder_dtype, update_dtype=update_dtype).to(dev).eval()
+    plain = RAFT(iters=4, lookup=lookup_pyramid, encoder_dtype=encoder_dtype,
+                 update_dtype=update_dtype).to(dev).eval()
+    plain.load_state_dict(fast.state_dict())
+    g = torch.Generator(device=dev).manual_seed(2)
+    i1 = 255 * torch.rand(2, 3, 64, 96, generator=g, device=dev)
+    i2 = 255 * torch.rand(2, 3, 64, 96, generator=g, device=dev)
+    before = corr_lookup.launches
+    with torch.no_grad():
+        _, up_fast = fast(i1, i2)
+        torch.cuda.synchronize()
+        assert corr_lookup.launches == before + 4
+        _, up_plain = plain(i1, i2)
+    assert up_fast.dtype == torch.float32 and up_fast.shape == (2, 2, 64, 96)
+    torch.testing.assert_close(up_fast, up_plain, atol=0, rtol=0)

@@ -11,7 +11,9 @@ lookup, the reflect-pad 3×3 trunk conv in four cost modes, the in-kernel
 matrix-product rate probe) launch for CUDA tensors; for CPU tensors their
 wrappers (``vst_torch/kernels/``) compute the plain PyTorch versions.
 
-This package imports torch, numpy and scipy only — never jax, flax or vst.
+This package imports torch, numpy and scipy only — never jax, flax or vst;
+the commands that read video files or write videos import cv2 or imageio
+inside themselves.
 """
 
 import torch

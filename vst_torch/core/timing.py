@@ -7,7 +7,7 @@ from __future__ import annotations
 
 import math
 import time
-from typing import Callable, List, Sequence
+from typing import Callable, List, Sequence, Tuple
 
 import torch
 
@@ -35,6 +35,24 @@ def chain_ms(fn: Callable, x, iters: int) -> float:
         x = fn(x)
     float(x.sum())
     return (time.perf_counter() - t0) / iters * 1000.0
+
+
+def call_ms(fn: Callable, device: torch.device) -> Tuple[object, float]:
+    """(fn(), ms of that one call). On CUDA: a synchronize first, so the
+    device has drained earlier work, then CUDA events around the call; on
+    the CPU, where a call returns when its work is done, the host clock."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn()
+        end.record()
+        end.synchronize()
+        return out, start.elapsed_time(end)
+    t0 = time.perf_counter()
+    out = fn()
+    return out, (time.perf_counter() - t0) * 1000.0
 
 
 def windows_ms(fn: Callable, x, iters: int, windows: int = 3) -> List[float]:

@@ -1,1 +1,2 @@
-"""The Sintel TCL-ST / TCL-LT / DT harness and its FastStyleNet driver."""
+"""The Sintel TCL-ST / TCL-LT / DT harness, the feed-forward family's
+drivers, and writing stylized frames."""

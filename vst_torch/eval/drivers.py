@@ -1,4 +1,6 @@
-"""The FastStyleNet Sintel driver, port of ``vst/eval/drivers.py:29-73``.
+"""The feed-forward family's Sintel drivers, port of
+``vst/eval/drivers.py:29-73`` (Johnson, Dumoulin, Huang, ReCoNet through the
+generic harness) and ``:378-506`` (Ruder's streaming protocol).
 
 The harness normalises frames with mean/std 0.5
 (``fast_style_transfer.py:407-410``): the net sees [−1, 1] frames, and so
@@ -9,11 +11,18 @@ effect only.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
+import torch
 
-from vst_torch.eval.sintel import evaluate_videos
+from vst_torch import set_f32_precision
+from vst_torch.core.timing import call_ms
+from vst_torch.eval.sintel import (aggregate_results, evaluate_videos, flows_to_device,
+                                   frames_to_device, tcl_value)
+from vst_torch.ops.flowtools import fbc_mask
+from vst_torch.ops.image import InputPadder
+from vst_torch.ops.sample import warp
 
 
 def faststyle_stylize_fn(model, state_dict):
@@ -56,3 +65,81 @@ def evaluate_sintel_faststyle(model, state_dict, videos, raft_apply,
         save_transform=grayscale_save_transform(),
         device=device, **kw,
     )
+
+
+@torch.no_grad()
+def evaluate_sintel_ruder(model, state_dict, pre_model, pre_state_dict, videos,
+                          raft_apply: Callable, styles=(0, 1, 2), out_path=None,
+                          lt_len: int = 5, dt_iters: int = 20, flow_fn=None,
+                          num_domains=None, device="cuda"):
+    """Ruder's streaming Sintel evaluation (``fast_style_transfer.py:494-556``
+    with ``fs_ruder.infer_method``, ``:110-121``) on ``device`` (CUDA by
+    default). ``model`` is the 7-input FastStyleNet, ``pre_model`` the
+    3-input frame-0 bootstrap; both must lie on ``device`` and get their
+    ``state_dict`` here.
+
+    Frame 0 goes through the bootstrap. Frame i > 0: RAFT(frame i−1,
+    frame i) forward and backward in one call at batch 2, the fb mask,
+    ``warp_last = warp(x_fake_{i−1}, bf)``, then the 7-input net on
+    cat(frame, mask, warp_last). TCL-ST = RMS(mask·(x_fake − warp_last)):
+    the warp is both the net's input and the metric's target. TCL-LT warps
+    the output of frame i−5 with the i−5 pair's flow. ``flow_fn(video, i,
+    j)`` → (ff, bf) host arrays replaces RAFT. DT is the net call alone,
+    timed after the flow, mask and warp have drained (``call_ms``).
+    ``dt_iters`` is taken for the harness's signature and unused, as in vst.
+    """
+    set_f32_precision()
+    device = torch.device(device)
+    for net, sd in ((model, state_dict), (pre_model, pre_state_dict)):
+        net.load_state_dict(sd)
+        net.eval()
+
+    def stylize0(img, sid):
+        return (pre_model(img, 1.0, sid)[1] / 255.0).clamp(0.0, 1.0)
+
+    def stylize_i(img, mask, warped, sid):
+        return (model(torch.cat([img, mask, warped], 1), 1.0, sid)[1] / 255.0).clamp(0.0, 1.0)
+
+    def flow_and_mask(video, frames, i, j):
+        """(bf, mask): the backward flow frame i → the earlier frame j and
+        the fb-consistency mask."""
+        if flow_fn is None:
+            earlier, current = frames[j:j + 1], frames[i:i + 1]
+            padder = InputPadder(earlier.shape)
+            i1, i2 = padder.pad(earlier, current)
+            _, up = raft_apply(torch.cat([i1, i2], 0), torch.cat([i2, i1], 0))
+            ff, bf = padder.unpad(up[:1]), padder.unpad(up[1:])
+        else:
+            ff, bf = flows_to_device(flow_fn(video, i, j), device)
+        return bf, fbc_mask(ff, bf)
+
+    tcl_st, tcl_lt, dt = {}, {}, {}
+    for video in videos:
+        frames01 = frames_to_device(video.frames, device)
+        frames = frames01 * 2.0 - 1.0  # the eval Normalize(0.5) quirk
+        for d, style in enumerate(styles):
+            sid = torch.as_tensor(style, device=device)
+            key = f"{video.name}_s{d + 1}"
+            st_vals, lt_vals, dt_vals, hist = [], [], [], []
+            stylize0(frames[0:1], sid)  # warm both nets before timing
+            stylize_i(frames[0:1], torch.zeros_like(frames[0:1, :1]), frames01[0:1], sid)
+            for i in range(len(video)):
+                img = frames[i:i + 1]
+                if i == 0:
+                    x_fake, ms = call_ms(lambda: stylize0(img, sid), device)
+                else:
+                    bf, mask = flow_and_mask(video, frames, i, i - 1)
+                    warp_last = warp(hist[-1], bf)
+                    x_fake, ms = call_ms(lambda: stylize_i(img, mask, warp_last, sid), device)
+                    st_vals.append(float(tcl_value(mask, x_fake, warp_last)))
+                dt_vals.append(ms)
+                if i >= lt_len:
+                    bf5, m5 = flow_and_mask(video, frames, i, i - lt_len)
+                    lt_vals.append(float(tcl_value(m5, x_fake, warp(hist.pop(0), bf5))))
+                hist.append(x_fake)
+            tcl_st[f"TCL-ST_{key}"] = float(np.mean(st_vals)) if st_vals else 0.0
+            tcl_lt[f"TCL-LT_{key}"] = float(np.mean(lt_vals)) if lt_vals else 0.0
+            dt[f"DT_{key}"] = float(np.mean(dt_vals))
+
+    nd = (num_domains or len(styles) + 1) - 1
+    return aggregate_results({"TCL-ST": tcl_st, "TCL-LT": tcl_lt, "DT": dt}, nd, out_path)

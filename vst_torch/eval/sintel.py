@@ -60,8 +60,42 @@ def load_sintel_videos(sintel_dir: str, crop_h: int = 432) -> List[SintelVideo]:
     return videos
 
 
-def _tcl_value(mask, x_fake, warped):
+def tcl_value(mask, x_fake, warped):
+    """RMS(mask·(x_fake − warped)): the TCL of one frame pair."""
     return torch.sqrt(torch.mean((mask * (x_fake - warped)) ** 2))
+
+
+def frames_to_device(frames: np.ndarray, device, transform: Optional[Callable] = None):
+    """(N, H, W, 3) host frames, mapped by ``transform``, → NCHW float32 on
+    ``device``."""
+    if transform is not None:
+        frames = transform(frames)
+    return torch.from_numpy(np.ascontiguousarray(frames, np.float32)).permute(
+        0, 3, 1, 2).contiguous().to(device)
+
+
+def flows_to_device(flows, device):
+    """``flow_fn``'s host (H, W, 2) flows → (1, 2, H, W) float32 on ``device``."""
+    return [torch.from_numpy(np.asarray(f, np.float32)).permute(2, 0, 1)[None].to(device)
+            for f in flows]
+
+
+def aggregate_results(tables: Dict[str, Dict[str, float]], num_styles: int,
+                      out_path: Optional[str] = None) -> Dict[str, Dict[str, float]]:
+    """Per metric ("TCL-ST", ...): the reference's ``<ID>_mean`` and
+    ``<ID>_mean_s{d}`` aggregation of its per-(video, style) values, written
+    to ``<out_path>/<ID>.json`` when ``out_path`` is given."""
+    results = {}
+    for out_id, data in tables.items():
+        agg = aggregate_means(data, num_styles=num_styles)
+        agg[f"{out_id}_mean"] = agg.pop("_mean")
+        for d in range(1, num_styles + 1):
+            if f"_mean_s{d}" in agg:
+                agg[f"{out_id}_mean_s{d}"] = agg.pop(f"_mean_s{d}")
+        results[out_id] = agg
+        if out_path:
+            save_json(agg, os.path.join(out_path, out_id + ".json"), aggregate=False)
+    return results
 
 
 def make_tcl_program(stylize_fn: Callable, raft_apply: Callable,
@@ -100,14 +134,14 @@ def make_tcl_program(stylize_fn: Callable, raft_apply: Callable,
         x_fake = stylize_fn(img, style)
         (ff,), (bf,) = compute_raft_multi([img2], [img])
         warped = warp(stylize_fn(img2, style), bf)
-        return x_fake, _tcl_value(fbc_mask(ff, bf), x_fake, warped)
+        return x_fake, tcl_value(fbc_mask(ff, bf), x_fake, warped)
 
     @torch.no_grad()
     def tcl_gt(img, img2, style, ff, bf):
         """The same metric with given flow (a dataset's or a motion oracle's)."""
         x_fake = stylize_fn(img, style)
         warped = warp(stylize_fn(img2, style), bf)
-        return x_fake, _tcl_value(fbc_mask(ff, bf), x_fake, warped)
+        return x_fake, tcl_value(fbc_mask(ff, bf), x_fake, warped)
 
     @torch.no_grad()
     def tcl2(img, img_st, img_lt, style):
@@ -115,7 +149,7 @@ def make_tcl_program(stylize_fn: Callable, raft_apply: Callable,
         both flow pairs share one RAFT call at batch 4."""
         x_fake = stylize_fn(img, style)
         fwd, bwd = compute_raft_multi([img_st, img_lt], [img, img])
-        vals = [_tcl_value(fbc_mask(ff, bf), x_fake, warp(stylize_fn(earlier, style), bf))
+        vals = [tcl_value(fbc_mask(ff, bf), x_fake, warp(stylize_fn(earlier, style), bf))
                 for ff, bf, earlier in zip(fwd, bwd, (img_st, img_lt))]
         return x_fake, vals[0], vals[1]
 
@@ -157,13 +191,8 @@ def evaluate_videos(
     """
     set_f32_precision()
     device = torch.device(device)
-    ft = frame_transform or (lambda x: x)
     progs = make_tcl_program(stylize_fn, raft_apply, raft_preprocess=raft_preprocess)
     styles = [torch.as_tensor(s, device=device) for s in styles]
-
-    def to_device(frames):
-        return torch.from_numpy(np.ascontiguousarray(ft(frames), np.float32)).permute(
-            0, 3, 1, 2).contiguous().to(device)
 
     # warm every (resolution, style) stylize before any DT timing
     if dt_iters > 0:
@@ -173,7 +202,7 @@ def evaluate_videos(
             if hw in seen_hw:
                 continue
             seen_hw.add(hw)
-            f0 = to_device(video.frames[:1])
+            f0 = frames_to_device(video.frames[:1], device, frame_transform)
             for style in styles:
                 for _ in range(2):
                     float(progs[1](f0, style).sum())
@@ -182,7 +211,7 @@ def evaluate_videos(
     tcl_lt: Dict[str, float] = {}
     dt: Dict[str, float] = {}
     for video in videos:
-        frames = to_device(video.frames)
+        frames = frames_to_device(video.frames, device, frame_transform)
         for d, style in enumerate(styles):
             key = f"{video.name}_s{d + 1}"
             tcl_st[f"TCL-ST_{key}"], tcl_lt[f"TCL-LT_{key}"], dt[f"DT_{key}"] = _eval_one(
@@ -190,17 +219,7 @@ def evaluate_videos(
                 out_path, flow_fn, save_transform)
 
     nd = (num_domains or len(styles) + 1) - 1
-    results = {}
-    for out_id, data in (("TCL-ST", tcl_st), ("TCL-LT", tcl_lt), ("DT", dt)):
-        agg = aggregate_means(data, num_styles=nd)
-        agg[f"{out_id}_mean"] = agg.pop("_mean")
-        for d in range(1, nd + 1):
-            if f"_mean_s{d}" in agg:
-                agg[f"{out_id}_mean_s{d}"] = agg.pop(f"_mean_s{d}")
-        results[out_id] = agg
-        if out_path:
-            save_json(agg, os.path.join(out_path, out_id + ".json"), aggregate=False)
-    return results
+    return aggregate_results({"TCL-ST": tcl_st, "TCL-LT": tcl_lt, "DT": dt}, nd, out_path)
 
 
 def _eval_one(video, frames, d, style, progs, lt_len, dt_iters, save_frames,
@@ -220,8 +239,7 @@ def _eval_one(video, frames, d, style, progs, lt_len, dt_iters, save_frames,
     def tcl_pair(img, j, i):
         if flow_fn is None:
             return tcl_prog(img, frames[j:j + 1], style)[1]
-        ff, bf = (torch.from_numpy(np.asarray(f, np.float32)).permute(2, 0, 1)[None].to(frames.device)
-                  for f in flow_fn(video, i, j))
+        ff, bf = flows_to_device(flow_fn(video, i, j), frames.device)
         return tcl_gt_prog(img, frames[j:j + 1], style, ff, bf)[1]
 
     for i in range(n):

@@ -19,6 +19,7 @@ plain version's autograd, on whichever device the inputs lie.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Sequence
 
 import torch
@@ -76,8 +77,18 @@ def _check(pyramid: Sequence[torch.Tensor], coords: torch.Tensor, radius: int) -
                 f"pyramid levels must be ({q}, 1, h, w), got {tuple(lvl.shape)}")
 
 
+@functools.cache
+def _kernel():
+    """The kernel's C entry point, built, loaded and resolved once."""
+    return _nvcc.load("corr_lookup", _ENTRY_POINTS)[0].corr_lookup_launch
+
+
 def _launch(pyramid: Sequence[torch.Tensor], coords: torch.Tensor, radius: int) -> torch.Tensor:
-    lib, _ = _nvcc.load("corr_lookup", _ENTRY_POINTS)
+    # the kernel runs on the current device, which a stream handle of 0 (the
+    # default stream) does not name
+    if coords.get_device() != torch.cuda.current_device():
+        raise ValueError(f"corr_lookup: inputs are on {coords.device}, the current device is "
+                         f"cuda:{torch.cuda.current_device()}; launch under torch.cuda.device")
     B, _, H, W = coords.shape
     n = 2 * radius + 1
     out = torch.empty((B, H, W, len(pyramid) * n * n), dtype=torch.float32,
@@ -85,11 +96,8 @@ def _launch(pyramid: Sequence[torch.Tensor], coords: torch.Tensor, radius: int) 
     ptrs = [lvl.data_ptr() for lvl in pyramid] + [None] * (MAX_LEVELS - len(pyramid))
     heights = (ctypes.c_int * MAX_LEVELS)(*[lvl.shape[2] for lvl in pyramid])
     widths = (ctypes.c_int * MAX_LEVELS)(*[lvl.shape[3] for lvl in pyramid])
-    with torch.cuda.device(coords.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.corr_lookup_launch(
-            *ptrs, heights, widths, len(pyramid), coords.data_ptr(), out.data_ptr(),
-            B * H * W, H * W, radius, stream)
+    err = _kernel()(*ptrs, heights, widths, len(pyramid), coords.data_ptr(), out.data_ptr(),
+                    B * H * W, H * W, radius, torch.cuda.current_stream(coords.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"corr_lookup kernel launch failed: cudaError {err}")
     corr_lookup.launches += 1

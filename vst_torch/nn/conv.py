@@ -18,24 +18,37 @@ from torch import nn
 
 from vst_torch.ops.image import reflect_pad, resize_nearest
 
-# vst's TorchConv is flax's Conv with torch's default init and symmetric
-# zero padding: that is nn.Conv2d itself.
-TorchConv = nn.Conv2d
+
+class TorchConv(nn.Conv2d):
+    """vst's ``TorchConv`` (``vst/nn/conv.py:14-48``): flax's Conv with torch's
+    default init and symmetric zero padding, which is ``nn.Conv2d``, with
+    flax's compute ``dtype`` as ``compute_dtype``. With it set, the parameters
+    keep their dtype and the input, kernel and bias are cast to
+    ``compute_dtype``, which the output keeps; with ``compute_dtype=None`` it
+    is ``nn.Conv2d`` itself."""
+
+    def __init__(self, *args, compute_dtype: torch.dtype | None = None, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        if dt is None:
+            return super().forward(x)
+        bias = None if self.bias is None else self.bias.to(dt)
+        return self._conv_forward(x.to(dt), self.weight.to(dt), bias)
 
 
 @contextlib.contextmanager
-def without_cudnn():
-    """Run CUDA convolutions on PyTorch's own path (im2col + cuBLAS) rather
-    than cuDNN, restoring the flag on exit. For RAFT: with TF32 off, cuDNN 9
-    picks engines for its 3×3 convs over 256 channels at batch 4 × 54×128
-    that run its update block about 70× slower than this path on an H100
-    (chip_smoke.py's raft phase; PERF.md)."""
-    enabled = torch.backends.cudnn.enabled
-    torch.backends.cudnn.enabled = False
+def cudnn_enabled(enabled: bool):
+    """Run CUDA convolutions on cuDNN or, with ``enabled=False``, on
+    PyTorch's own path (im2col + cuBLAS), restoring the flag on exit."""
+    before = torch.backends.cudnn.enabled
+    torch.backends.cudnn.enabled = enabled
     try:
         yield
     finally:
-        torch.backends.cudnn.enabled = enabled
+        torch.backends.cudnn.enabled = before
 
 
 class ConvLayer(nn.Module):
