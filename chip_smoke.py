@@ -60,8 +60,21 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
    the launches of its timing.
 12. bench: vst_torch.bench on f32_b1, bf16_b1 and bf16_b8 (eager chain and
    CUDA-graph chain), and `vst_torch.cli bench-raft` on its f32 variant.
+13. train_faststyle: one step of each method at 64×64, batch 2, on the card
+   against the CPU from the same weights (loss and terms in f32 ≤ 1e-4
+   relative, every gradient in f64 ≤ 1e-3 relative in L2; the f32
+   gradients' difference recorded); VGG16 and FastStyleNet forward and
+   backward at 16×3×256×256 on cuDNN and on PyTorch's own convolutions;
+   `vst_torch.cli train-faststyle` for each method at 256², batch 16, 20
+   steps from the device cache over a 64-sample FC2-layout corpus written to
+   a temporary directory (device step by CUDA events, median after 3
+   warm-up steps; images/s; peak memory; every loss finite); Johnson on one
+   fixed batch for 30 steps, its last loss below its first, then 2 steps
+   under torch.profiler (device busy share, top kernels); Johnson on
+   synthetic host batches, the host's batch time beside the step time. The
+   training path launches none of the kernels: their counts stay 0.
 
-Phases 5–12 each drive one path with the kernels' launch counts set to 0
+Phases 5–13 each drive one path with the kernels' launch counts set to 0
 just before it and read just after; a kernel of the path that was never
 launched fails the run. Then the card's name and power limit (nvidia-smi),
 the kernels line and the result line. Float32 with TF32 off. Weights and
@@ -89,6 +102,9 @@ from vst_torch.cli.__main__ import main as cli_main
 from vst_torch.cli.__main__ import parser as cli_parser
 from vst_torch.core.roofline import PEAK_BYTES_PER_S, PEAK_F32_OPS_PER_S
 from vst_torch.core.timing import chain_ms, cold_pool, graph_ms, host_ms, windows_ms
+from vst_torch.data.device_cache import DeviceFC2Cache
+from vst_torch.data.loader import pack_fc2_npy
+from vst_torch.data.styles import load_style_images
 from vst_torch.eval.drivers import (evaluate_sintel_faststyle, evaluate_sintel_ruder,
                                     faststyle_stylize_fn)
 from vst_torch.eval.sintel import SintelVideo, make_tcl_program
@@ -101,10 +117,14 @@ from vst_torch.kernels import pad_conv3x3 as pad_conv3x3_module
 from vst_torch.kernels.corr_lookup import corr_lookup
 from vst_torch.kernels.gemm_rate import gemm_rate, gemm_rate_plain
 from vst_torch.kernels.pad_conv3x3 import MODES, dtype_name, pad_conv3x3, pad_conv3x3_plain
+from vst_torch.models.faststyle import FastStyleNet
 from vst_torch.nn.conv import cudnn_enabled
 from vst_torch.ops.image import InputPadder
+from vst_torch.perceptual.vgg import Vgg16Features, he_randomized_
 from vst_torch.probes import bisect_im2col, bisect_kernel_cost, bisect_mxu
-from vst_torch.train.registry import method_net
+from vst_torch.train.faststyle import FastStyleTrainer
+from vst_torch.train.parity import grad_errors, training_step
+from vst_torch.train.registry import FASTSTYLE_METHODS, method_net, select_method
 
 RADIUS = 4
 LEVELS = 4
@@ -132,6 +152,14 @@ KERNEL_SOURCES = ("corr_lookup", "pad_conv3x3", "gemm_rate")
 # f32 operations per lookup output: level scale and offset (2 per axis), floor
 # fractions and complements (4), 4 corner weights, 4 products, 3 sums
 OPS_PER_OUTPUT = 17
+TRAIN_HW = (256, 256)  # train-faststyle at the README's size and batch
+TRAIN_BATCH = 16
+TRAIN_STEPS = 20
+TRAIN_CORPUS = 64
+LEARN_STEPS = 30
+HOST_STEPS = 6
+TRAIN_LOSS_RTOL = 1e-4  # card against CPU, f32
+TRAIN_GRAD_RTOL = 1e-3  # card against CPU, f64, L2 per parameter
 
 
 def emit(obj) -> None:
@@ -789,6 +817,141 @@ def phase_bench(dev):
           "corr_lookup_launches": launches})
 
 
+def check_training_step(method, dev, coin):
+    """One step on the card against the CPU: loss and terms in f32, every
+    gradient in f64 (in f32 the ReLUs and max-pools that rounding switches
+    decide a part of the gradient, recorded as ``f32_grad_*``)."""
+    (want, want_aux, want_g32), (got, got_aux, got_g32) = (
+        training_step(method, d, torch.float32, coin) for d in ("cpu", dev))
+    loss_rel = max([abs(got - want) / abs(want)]
+                   + [abs(got_aux[k] - w) / abs(w) for k, w in want_aux.items() if w])
+    (_, _, want_g), (_, _, got_g) = (training_step(method, d, torch.float64, coin)
+                                     for d in ("cpu", dev))
+    grad_rel, _ = grad_errors(got_g, want_g)
+    if not (loss_rel <= TRAIN_LOSS_RTOL and grad_rel <= TRAIN_GRAD_RTOL):
+        raise AssertionError(f"train step {method} card vs CPU: loss {loss_rel} > "
+                             f"{TRAIN_LOSS_RTOL} or f64 gradient {grad_rel} > {TRAIN_GRAD_RTOL}")
+    f32_worst, f32_whole = grad_errors(got_g32, want_g32)
+    return {"loss": want, "loss_max_rel_err": loss_rel, "f64_grad_max_rel_err": grad_rel,
+            "f32_grad_max_rel_err": f32_worst, "f32_grad_whole_rel_err": f32_whole}
+
+
+def conv_split(dev):
+    """ms and peak memory of VGG16 (content forward, styled forward and
+    input gradient, as a Johnson step runs it) and of FastStyleNet (forward
+    and backward) at 16×3×256×256, on cuDNN and on PyTorch's own
+    convolutions."""
+    g = torch.Generator(device=dev).manual_seed(0)
+    content = torch.rand(TRAIN_BATCH, 3, *TRAIN_HW, generator=g, device=dev)
+    styled = torch.rand(TRAIN_BATCH, 3, *TRAIN_HW, generator=g, device=dev).requires_grad_()
+    vgg = he_randomized_(Vgg16Features(), 0).requires_grad_(False).to(dev)
+    torch.manual_seed(0)
+    net = FastStyleNet().to(dev)
+
+    def vgg_step():
+        cf, sf = vgg(content), vgg(styled)
+        loss = ((sf[2] - cf[2]) ** 2).mean() + sum(f.square().mean() for f in sf)
+        torch.autograd.grad(loss, styled)
+
+    def net_step():
+        net(content)[1].mean().backward()
+
+    out = {}
+    for cudnn in (True, False):
+        with cudnn_enabled(cudnn):
+            part = out["cudnn" if cudnn else "native"] = {}
+            for name, fn in (("vgg16_fwd_bwd", vgg_step), ("faststyle_fwd_bwd", net_step)):
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                part[name] = time_ms(fn, 3, 1)
+                part[name + "_peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    return out
+
+
+def profile_steps(trainer, batch, steps=2):
+    """torch.profiler over ``steps`` training steps: the wall per step, the
+    kernels' device time per step (the device's busy share of the wall)
+    and the 12 kernels that take the most."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    trainer.train_step(batch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            trainer.train_step(batch)
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    kernels = sorted(((e.key, e.self_device_time_total / 1e3 / steps, e.count / steps)
+                      for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
+                     key=lambda k: -k[1])
+    device_ms = sum(ms for _, ms, _ in kernels)
+    return {"wall_ms_per_step": wall_ms, "kernel_ms_per_step": device_ms,
+            "busy_share": device_ms / wall_ms,
+            "top_kernels": [{"name": name[:100], "ms_per_step": ms, "calls_per_step": n}
+                            for name, ms, n in kernels[:12]]}
+
+
+def kernel_launches():
+    return {"corr_lookup": corr_lookup.launches,
+            "pad_conv3x3": sum(pad_conv3x3.launches.values()),
+            "gemm_rate": sum(gemm_rate.launches.values())}
+
+
+def phase_train_faststyle(dev):
+    record = {"phase": "train_faststyle", "hw": list(TRAIN_HW), "batch": TRAIN_BATCH,
+              "small_check": {}, "runs": {}}
+    for method in FASTSTYLE_METHODS:
+        for coin in ((True, False) if method == "ruder" else (None,)):
+            name = method + {True: "_roll", False: "_zero", None: ""}[coin]
+            record["small_check"][name] = check_training_step(method, dev, coin)
+    record["cudnn_vs_native_ms"] = conv_split(dev)
+
+    train = ["train-faststyle", "--hw", *map(str, TRAIN_HW), "--batch-size", str(TRAIN_BATCH),
+             "--log-every", "5"]
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        corpus = os.path.join(tmp, "fc2")
+        pack_fc2_npy(corpus, TRAIN_CORPUS, TRAIN_HW)
+        record["corpus_write_s"] = time.perf_counter() - t0
+        reset_counts()
+        for method in FASTSTYLE_METHODS:
+            t0 = time.perf_counter()
+            res = cli_main([*train, "--method", method, "--steps", str(TRAIN_STEPS),
+                            "--data-dir", corpus, "--device-cache", str(TRAIN_CORPUS),
+                            "--out-dir", os.path.join(tmp, method)])
+            if res["n_nonfinite"] or not all(math.isfinite(v) for v in res["losses"]):
+                raise AssertionError(f"train-faststyle {method}: a loss is not finite")
+            record["runs"][method] = {**{k: v for k, v in res.items() if k != "batch_ms"},
+                                      "seconds": time.perf_counter() - t0}
+        launches = kernel_launches()
+
+        # vst's own check (tests/test_train_faststyle.py:49-53): on one fixed
+        # batch Johnson's loss falls
+        cfg = select_method("johnson", batch_size=TRAIN_BATCH)
+        trainer = FastStyleTrainer(cfg, load_style_images(size=256)[:1], seed=0, device=dev)
+        batch = DeviceFC2Cache(corpus, seed=1, device=dev).sample(TRAIN_BATCH)
+        losses = torch.stack([trainer.train_step(batch)["loss"]
+                              for _ in range(LEARN_STEPS)]).tolist()
+        if not (all(math.isfinite(v) for v in losses) and losses[-1] < losses[0]):
+            raise AssertionError(f"Johnson on one batch did not learn: {losses}")
+        record["fixed_batch"] = {"steps": LEARN_STEPS, "first_loss": losses[0],
+                                 "last_loss": losses[-1]}
+        record["johnson_profile"] = profile_steps(trainer, batch)
+
+        # the host path: batches made on the host for every step
+        res = cli_main([*train, "--method", "johnson", "--steps", str(HOST_STEPS),
+                        "--out-dir", os.path.join(tmp, "host")])
+        if res["n_nonfinite"]:
+            raise AssertionError("train-faststyle on host batches: a loss is not finite")
+        record["host_path"] = {k: v for k, v in res.items() if k != "losses"}
+    if any(launches.values()):
+        raise AssertionError(f"the training path launched a kernel: {launches}")
+    record["kernel_launches"] = launches
+    emit(record)
+
+
 def kernel_entries(name, source, replaces, measured):
     """The kernels line's entries of one kernel, one per variant."""
     return [{"name": f"{name}_{variant}", "route": "cuda", "source": source,
@@ -830,6 +993,7 @@ def main() -> int:
     cost = phase_kernel_cost(dev, weighted_errs)
     gemm = phase_gemm_rate(dev)
     phase_bench(dev)
+    phase_train_faststyle(dev)
 
     smi = subprocess.run(["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], check=True, capture_output=True, text=True)

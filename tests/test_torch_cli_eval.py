@@ -131,7 +131,7 @@ def test_write_png_round_trip(tmp_path):
 def test_registry_is_vsts():
     from vst.train.registry import FASTSTYLE_METHODS as VST_METHODS
 
-    assert FASTSTYLE_METHODS == tuple(VST_METHODS)
+    assert FASTSTYLE_METHODS == VST_METHODS  # names and emphasis parameters
     assert {m: num_inputs(m) for m in FASTSTYLE_METHODS} == {
         "johnson": 3, "dumoulin": 3, "huang": 3, "reconet": 3, "ruder": 7}
     assert method_net("ruder", 3).conv1.conv2d.in_channels == 7

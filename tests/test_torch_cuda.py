@@ -1,8 +1,10 @@
 """The Hopper kernels on the card: corr_lookup against its plain version and
 RAFT through it against RAFT with the plain lookup; pad_conv3x3 in its four
-modes and gemm_rate against their plain versions. Marked ``cuda``; they skip
-where there is no CUDA device. On a machine with an H100 (``--noconftest``:
-the suite's conftest needs jax, which these tests do not):
+modes and gemm_rate against their plain versions; one training step of each
+feed-forward method on the card against the CPU, and the device cache
+against the same cache on the CPU. Marked ``cuda``; they skip where there
+is no CUDA device. On a machine with an H100 (``--noconftest``: the suite's
+conftest needs jax, which these tests do not):
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q -m cuda
 """
@@ -11,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+from vst_torch.data.device_cache import DeviceFC2Cache
 from vst_torch.flow.corr import build_pyramid, lookup_pyramid
 from vst_torch.flow.raft import RAFT, coords_grid
 from vst_torch.kernels.corr_lookup import corr_lookup
@@ -18,6 +21,7 @@ from vst_torch.kernels.gemm_rate import gemm_rate, gemm_rate_plain
 from vst_torch.kernels.pad_conv3x3 import MODES, dtype_name, pad_conv3x3, pad_conv3x3_plain
 from vst_torch.probes.bisect_im2col import trunk_inputs
 from vst_torch.probes.bisect_mxu import SHAPES as GEMM_SHAPES
+from vst_torch.train.parity import grad_errors, training_step
 
 pytestmark = pytest.mark.cuda
 
@@ -227,3 +231,37 @@ def test_bf16_raft_through_the_kernel_matches_plain_lookup(dev, encoder_dtype, u
         _, up_plain = plain(i1, i2)
     assert up_fast.dtype == torch.float32 and up_fast.shape == (2, 2, 64, 96)
     torch.testing.assert_close(up_fast, up_plain, atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("method", ["johnson", "dumoulin", "huang", "reconet", "ruder"])
+def test_training_step_on_the_card_matches_the_cpu(dev, method):
+    """One step at 64×64, batch 2 (Ruder unrolled): the loss and its terms in
+    float32 within 1e-4 relative; every parameter's gradient in float64
+    within 1e-3 relative in L2 (``vst_torch.train.parity``: in float32 the
+    ReLUs and max-pools that rounding switches decide 0.6–2 % of a
+    parameter's gradient)."""
+    coin = True if method == "ruder" else None
+    (want, want_aux, _), (got, got_aux, _) = (training_step(method, d, torch.float32, coin)
+                                              for d in ("cpu", dev))
+    assert abs(got - want) <= 1e-4 * abs(want)
+    for k, w in want_aux.items():
+        assert abs(got_aux[k] - w) <= 1e-4 * abs(w), k
+    (_, _, want_g), (_, _, got_g) = (training_step(method, d, torch.float64, coin)
+                                     for d in ("cpu", dev))
+    assert grad_errors(got_g, want_g)[0] <= 1e-3
+
+
+def test_device_cache_on_the_card_is_the_cpus(dev, tmp_path):
+    rng = np.random.RandomState(0)
+    for i in range(5):
+        d = rng.rand(1, 16, 20, 9).astype(np.float32)
+        d[..., 7:9] = 8 * d[..., 7:9] - 4
+        np.save(tmp_path / f"{i:07d}.npy", d)
+    card = DeviceFC2Cache(str(tmp_path), seed=3, device=dev)
+    host = DeviceFC2Cache(str(tmp_path), seed=3, device="cpu")
+    assert card.imgs.device.type == "cuda"
+    for _ in range(3):
+        got, want = card.sample(4), host.sample(4)
+        for k in want:
+            assert got[k].device.type == "cuda"
+            torch.testing.assert_close(got[k].cpu(), want[k], atol=0, rtol=0)

@@ -1,5 +1,6 @@
 """The port stands alone: no module of vst_torch, nor chip_smoke.py, imports
-jax, flax or the JAX package vst, and none imports cv2 or imageio when it is
+jax, flax, the JAX package vst or torchvision (the H100 machine has no
+package of finished models), and none imports cv2 or imageio when it is
 imported (the H100 machine has neither imageio nor a promise of cv2: the
 commands that read or write those formats import them inside). Checked on
 the source with ``ast``, since the test process has jax imported already
@@ -11,7 +12,7 @@ from pathlib import Path
 import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
-FORBIDDEN = {"jax", "jaxlib", "flax", "vst"}
+FORBIDDEN = {"jax", "jaxlib", "flax", "vst", "torchvision"}
 NOT_AT_IMPORT = {"cv2", "imageio"}
 SOURCES = sorted((ROOT / "vst_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
@@ -42,6 +43,14 @@ def _module_level_roots(path):
 
 def test_sources_found():
     assert len(SOURCES) > 15 and all(p.exists() for p in SOURCES)
+
+
+def test_training_modules_are_checked():
+    names = {str(p.relative_to(ROOT)) for p in SOURCES}
+    assert {f"vst_torch/{m}.py" for m in (
+        "ops/losses", "perceptual/vgg", "train/faststyle", "train/registry",
+        "train/experiments", "data/styles", "data/loader", "data/native_loader",
+        "data/device_cache", "core/metrics", "train/parity")} <= names
 
 
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(ROOT)))

@@ -1,6 +1,9 @@
 """vst_torch command line, port of ``vst/cli/__main__.py``: the feed-forward
-family's evaluation and the benchmarks.
+family's training and evaluation, and the benchmarks.
 
+    python -m vst_torch.cli train-faststyle [--method johnson|dumoulin|huang|reconet|ruder]
+                                            [--hw 256 256] [--batch-size 16] [--steps N]
+                                            [--data-dir DIR [--device-cache N]]
     python -m vst_torch.cli eval-sintel [--method johnson|dumoulin|huang|reconet|ruder]
                                         [--hw 436 1024] [--sintel-dir DIR] [--raft-bf16]
     python -m vst_torch.cli stylize-video [--source DIR|VIDEO] [--batch-size 8] [--bf16]
@@ -12,6 +15,20 @@ stops. Float32 runs with TF32 off; RAFT's lookup goes through the
 corr_lookup kernel on CUDA. Weights are random, from seeds, unless a
 checkpoint is given. Checkpoints are torch ``state_dict`` files with the
 reference's key names (vst's flags read orbax directories, which need jax).
+
+``train-faststyle``: perceptual training (``vst_torch.train.faststyle``) on
+FC2-layout ``.npy`` files (``--data-dir``; with ``--device-cache N`` the
+first N samples are uploaded to the card once and batches are drawn there) or,
+without them, on synthetic affine-motion batches made on the host. The VGG16
+is He-randomized from ``--seed`` and the styles procedural unless
+``--style-dir`` holds the paintings (no weights or paintings ship with the
+repository). Prints vst's line every ``--log-every`` steps, writes
+``losses.txt`` and ``loss_list.npy``, saves the net's ``state_dict`` to
+``<out-dir>/model.pt`` every ``--ckpt-every`` steps and at the end (what
+``eval-sintel`` / ``stylize-video --ckpt-dir`` and ``--pre-style-ckpt``
+read), and ends with one JSON line: the device step (CUDA events around each
+step, the median after 3 warm-up steps; the host clock on the CPU),
+images/s, the host's time to make a batch, peak memory, first and last loss.
 
 ``eval-sintel``: TCL-ST / TCL-LT / DT of the FastStyleNet family on Sintel
 (``--sintel-dir``) or, without it, on an 8-frame synthetic affine-motion
@@ -54,14 +71,19 @@ import numpy as np
 import torch
 
 from vst_torch import bench, set_f32_precision
+from vst_torch.core.metrics import MetricsLogger
 from vst_torch.core.timing import windows_ms
-from vst_torch.data.synthetic import AffineMotionGenerator, _texture
+from vst_torch.data.device_cache import DeviceFC2Cache
+from vst_torch.data.loader import NpyDirDataset
+from vst_torch.data.styles import load_style_images
+from vst_torch.data.synthetic import MARGIN, AffineMotionGenerator, _texture, synthetic_batch
 from vst_torch.eval.drivers import evaluate_sintel_faststyle, evaluate_sintel_ruder
 from vst_torch.eval.sintel import SintelVideo, load_sintel_videos
 from vst_torch.eval.video import _writer, write_png
 from vst_torch.flow.raft import RAFT
 from vst_torch.ops.image import InputPadder
-from vst_torch.train.registry import FASTSTYLE_METHODS, bootstrap_net, method_net
+from vst_torch.train.faststyle import FastStyleTrainer, batch_to_tensors
+from vst_torch.train.registry import FASTSTYLE_METHODS, bootstrap_net, method_net, select_method
 
 BF16 = torch.bfloat16
 # variant name → (encoder dtype, update dtype, InputPadder multiple)
@@ -69,7 +91,8 @@ RAFT_VARIANTS = {"f32": (None, None, 8), "bf16_enc": (BF16, None, 8),
                  "bf16_full": (BF16, BF16, 8), "f32_pad64": (None, None, 64),
                  "bf16_full_pad64": (BF16, BF16, 64)}
 SLOPE_VARIANTS = ("f32", "bf16_full_pad64")
-SYNTHETIC_MARGIN = 96  # the texture is this much larger than the clip, as vst's
+CKPT_NAME = "model.pt"  # train-faststyle's checkpoint in --out-dir
+WARMUP_STEPS = 3  # train-faststyle's steps left out of the median step time
 
 
 def device_name(device: torch.device) -> str:
@@ -88,7 +111,7 @@ def synthetic_clip(hw, n_frames: int, seed: int):
     """vst's synthetic clip: (frames (n, H, W, 3) in [0, 1], its generator)."""
     rng = np.random.RandomState(seed)
     gen = AffineMotionGenerator(crop_hw=tuple(hw), seed=seed)
-    big = (hw[0] + SYNTHETIC_MARGIN, hw[1] + SYNTHETIC_MARGIN)
+    big = (hw[0] + MARGIN, hw[1] + MARGIN)
     frames, _, _ = gen.generate(_texture(rng, big), n_frames=n_frames)
     return frames, gen
 
@@ -204,6 +227,130 @@ def cmd_eval_sintel(args) -> Dict:
         results = evaluate_sintel_faststyle(net, state, videos, raft_apply, **kw)
     print({k: v[f"{k}_mean"] for k, v in results.items()})
     return results
+
+
+def _train_batches(args, n_frames: int, device: torch.device):
+    """``train-faststyle``'s batches: (the source's name, an endless iterator
+    of (batch, whether it is a host batch still to be copied))."""
+    if args.data_dir and args.device_cache:
+        cache = DeviceFC2Cache(args.data_dir, limit=args.device_cache, seed=args.seed,
+                               device=device)
+        print(f"device cache: {cache.n} samples resident on {device_name(device)}",
+              flush=True)
+
+        def cached():
+            while True:
+                yield cache.sample(args.batch_size), False
+
+        return "device_cache", cached()
+    if args.data_dir:
+        ds = NpyDirDataset(args.data_dir, args.batch_size)
+
+        def npy_dir():
+            while True:  # FC2 tuples have 2 frames; Ruder unrolls what it gets
+                for b in ds.epoch():
+                    yield b, True
+
+        return "npy_dir", npy_dir()
+
+    def synthetic():
+        i = 0
+        while True:
+            yield synthetic_batch(args.batch_size, hw=tuple(args.hw), n_frames=n_frames,
+                                  seed=args.seed + i), True
+            i += 1
+
+    return "synthetic", synthetic()
+
+
+class _StepTimer:
+    """Per-step times: CUDA events around each step on a card (read once, at
+    the end), the host clock on the CPU."""
+
+    def __init__(self, device: torch.device):
+        self.cuda = device.type == "cuda"
+        self.marks = []
+
+    def __enter__(self):
+        if self.cuda:
+            start = torch.cuda.Event(enable_timing=True)
+            start.record()
+            self.marks.append([start])
+        else:
+            self.marks.append([time.perf_counter()])
+
+    def __exit__(self, *exc):
+        if self.cuda:
+            end = torch.cuda.Event(enable_timing=True)
+            end.record()
+            self.marks[-1].append(end)
+        else:
+            self.marks[-1].append(time.perf_counter())
+
+    def ms(self):
+        if self.cuda:
+            torch.cuda.synchronize()
+            return [a.elapsed_time(b) for a, b in self.marks]
+        return [(b - a) * 1e3 for a, b in self.marks]
+
+
+def cmd_train_faststyle(args) -> Dict:
+    device = _device(args)
+    set_f32_precision()
+    cfg = select_method(args.method, n_styles=args.n_styles, batch_size=args.batch_size,
+                        n_frames=3 if args.method == "ruder" else 2)
+    styles = load_style_images(args.style_dir, size=256)[:max(args.n_styles, 1)]
+    # Ruder bootstraps frame 0 from a pretrained Johnson / Dumoulin net (fs_ruder.py:25-34)
+    pre_style = load_state(args.pre_style_ckpt) if args.pre_style_ckpt else None
+    trainer = FastStyleTrainer(cfg, styles, pre_style_state=pre_style, seed=args.seed,
+                               device=device)
+    source, batches = _train_batches(args, cfg.n_frames, device)
+    os.makedirs(args.out_dir, exist_ok=True)
+    logger = MetricsLogger(os.path.join(args.out_dir, "losses.txt"))
+    ckpt = os.path.join(args.out_dir, CKPT_NAME)
+    sids = np.random.RandomState(args.seed)
+    timer = _StepTimer(device)
+    batch_ms, losses = [], []
+
+    def next_batch():
+        t0 = time.perf_counter()
+        batch, on_host = next(batches)
+        batch_ms.append((time.perf_counter() - t0) * 1e3)
+        return batch_to_tensors(batch, device) if on_host else batch
+
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    t_loop = time.perf_counter()
+    batch = next_batch()
+    for i in range(args.steps):
+        sid = int(sids.randint(args.n_styles)) if args.n_styles > 1 else 0
+        with timer:
+            metrics = trainer.train_step(batch, sid)
+        losses.append(metrics["loss"])
+        if (i + 1) % args.log_every == 0:
+            logger.log(i + 1, **{k: float(v) for k, v in metrics.items()})
+            print(f"[{i + 1}/{args.steps}] " + " ".join(
+                f"{k}: {float(v):.4f}" for k, v in metrics.items()), flush=True)
+        if (i + 1) % args.ckpt_every == 0 or i + 1 == args.steps:
+            torch.save(trainer.model.state_dict(), ckpt)
+        if i + 1 < args.steps:
+            batch = next_batch()
+    step_ms = timer.ms()
+    wall = time.perf_counter() - t_loop
+    logger.save_curves(os.path.join(args.out_dir, "loss_list.npy"))
+    losses = torch.stack(losses).cpu().tolist()
+    step = float(np.median(step_ms[WARMUP_STEPS:] or step_ms))
+    line = {"method": args.method, "hw": list(args.hw), "batch": args.batch_size,
+            "steps": args.steps, "source": source, "device": device_name(device),
+            "step_ms_median": step, "images_per_s": args.batch_size * 1e3 / step,
+            "host_batch_ms_median": float(np.median(batch_ms)),
+            "wall_s": wall, "wall_images_per_s": args.batch_size * args.steps / wall,
+            "peak_mem_gib": (torch.cuda.max_memory_allocated(device) / 2 ** 30
+                             if device.type == "cuda" else None),
+            "first_loss": losses[0], "last_loss": losses[-1],
+            "n_nonfinite": int(sum(not np.isfinite(v) for v in losses)), "checkpoint": ckpt}
+    print(json.dumps(line))
+    return {**line, "losses": losses, "step_ms": step_ms, "batch_ms": batch_ms}
 
 
 def source_frames(args) -> np.ndarray:
@@ -338,6 +485,32 @@ def parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="vst_torch", description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     sub = p.add_subparsers(dest="command", required=True)
+
+    s = sub.add_parser("train-faststyle", help="Johnson/Dumoulin/Huang/ReCoNet/Ruder training")
+    _add_common(s)
+    s.add_argument("--steps", type=int, default=100)
+    s.add_argument("--batch-size", type=int, default=4)
+    s.add_argument("--log-every", type=int, default=10)
+    s.add_argument("--ckpt-every", type=int, default=1000,
+                   help=f"save the net's state_dict to <out-dir>/{CKPT_NAME} every N steps "
+                        "and at the end")
+    s.add_argument("--data-dir", default=None,
+                   help="FC2 DATAFiles dir ((1, H, W, 9) .npy per sample); synthetic "
+                        "batches if omitted")
+    s.add_argument("--device-cache", type=int, default=0,
+                   help="upload N corpus samples to the device once (uint8 images and "
+                        "masks, float16 flows) and draw every batch there; 0 = read each "
+                        "batch on the host")
+    s.add_argument("--method", default="johnson", choices=tuple(FASTSTYLE_METHODS))
+    s.add_argument("--n-styles", type=int, default=1,
+                   help="styles of one net; each step's style is drawn from "
+                        "np.random.RandomState(--seed) (vst draws it from numpy's global "
+                        "generator)")
+    s.add_argument("--style-dir", default=None)
+    s.add_argument("--pre-style-ckpt", default=None,
+                   help="Ruder's frame-0 bootstrap, a trained Johnson/Dumoulin FastStyleNet "
+                        "state_dict file (fs_ruder.py:25-34); a seeded net without it")
+    s.set_defaults(fn=cmd_train_faststyle)
 
     s = sub.add_parser("eval-sintel", help="TCL-ST / TCL-LT / DT video benchmark")
     _add_common(s)

@@ -1,9 +1,10 @@
 """Weights from vst's flax param trees into the port's ``state_dict``s.
 
-The inverses of ``vst.models.faststyle.faststyle_params_from_torch`` and
-``vst.flow.raft.raft_params_from_torch``. Both take the param tree (without
-the outer ``"params"`` key) with numpy leaves; conv kernels go
-(kh, kw, I, O) → (O, I, kh, kw).
+The inverses of ``vst.models.faststyle.faststyle_params_from_torch``,
+``vst.flow.raft.raft_params_from_torch`` and ``vst.perceptual.vgg``'s
+``vgg16/19_params_from_torch`` and ``caffe_vgg_params_from_torch``. Each
+takes the param tree (without the outer ``"params"`` key) with numpy leaves;
+conv kernels go (kh, kw, I, O) → (O, I, kh, kw).
 """
 
 from __future__ import annotations
@@ -102,4 +103,22 @@ def raft_state_dict_from_jax(params: dict) -> Dict[str, torch.Tensor]:
             _put_conv(sd, f"update_block.{part}.{conv}", cnode["Conv_0"])
     for name, node in params["mask_head"].items():
         _put_conv(sd, f"update_block.mask.{name[len('mask_'):]}", node["Conv_0"])
+    return sd
+
+
+def vgg_state_dict_from_jax(params: dict) -> Dict[str, torch.Tensor]:
+    """vst ``Vgg16Features`` / ``Vgg19Features`` params (``trunk/conv{i}``) →
+    the port's trunk state_dict (torchvision's ``features.{i}``)."""
+    sd: Dict[str, torch.Tensor] = {}
+    for name, node in params["trunk"].items():
+        _put_conv(sd, f"features.{name[len('conv'):]}", node["Conv_0"])
+    return sd
+
+
+def caffe_vgg_state_dict_from_jax(params: dict) -> Dict[str, torch.Tensor]:
+    """vst ``CaffeVGG`` params (``conv{a}_{b}``) → the port's state_dict, the
+    OBST ``vgg_conv.pth`` keys."""
+    sd: Dict[str, torch.Tensor] = {}
+    for name, node in params.items():
+        _put_conv(sd, name, node["Conv_0"])
     return sd

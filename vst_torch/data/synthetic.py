@@ -1,6 +1,7 @@
 """Synthetic affine-motion clips (host numpy), port of the parts of
-``vst/data/synthetic.py`` that evaluation uses: ``AffineMotionGenerator``
-(``generate``, ``pairwise_flows``) and the ``_texture`` content image.
+``vst/data/synthetic.py`` that evaluation and training use:
+``AffineMotionGenerator`` (``generate``, ``pairwise_flows``), the ``_texture``
+content image and ``synthetic_batch``.
 
 From a still image, a clip is made by random translate-scale-rotate (TSR)
 affine maps, each frame the previous one warped; the forward / backward flow
@@ -19,7 +20,7 @@ port needs no cv2:
   vst's; the frames agree with OpenCV 5.0's float32 path to rounding
   (``tests/test_torch_synthetic.py`` states the bound).
 
-``_scene`` and ``synthetic_batch`` (training batches) are not ported yet.
+``_scene`` (the shape scenes of ``datagen``) is not ported yet.
 """
 
 from __future__ import annotations
@@ -30,6 +31,7 @@ from typing import List, Tuple
 import numpy as np
 
 f32 = np.float32
+MARGIN = 96  # the texture is this much larger than the crop, as vst's
 
 
 def rotation_matrix_2d(center, angle_deg: float, scale: float) -> np.ndarray:
@@ -206,3 +208,19 @@ def _texture(rng: np.random.RandomState, hw) -> np.ndarray:
     img -= img.min()
     img /= max(img.max(), 1e-6)
     return img
+
+
+def synthetic_batch(batch_size: int, hw=(256, 256), n_frames: int = 2, seed: int = 0):
+    """An FC2-style training batch from procedural textures, vst's NHWC
+    layout: dict(imgs (B, n, H, W, 3) in [0, 1], flows (B, n−1, H, W, 2)
+    backward flows as in the FC2 files, masks (B, n−1, H, W, 1))."""
+    rng = np.random.RandomState(seed)
+    gen = AffineMotionGenerator(crop_hw=hw, seed=seed + 1)
+    big = (hw[0] + MARGIN, hw[1] + MARGIN)
+    frames, flows, masks = [], [], []
+    for _ in range(batch_size):
+        f, fl, m = gen.generate(_texture(rng, big), n_frames=n_frames)
+        frames.append(f)
+        flows.append(fl)
+        masks.append(m)
+    return {"imgs": np.stack(frames), "flows": np.stack(flows), "masks": np.stack(masks)}

@@ -17,9 +17,10 @@ def instance_norm(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
 
     Keeps vst's one-pass statistics: var = E[x²] − E[x]², clamped at 0
     against float32 cancellation. ``F.instance_norm`` centres first, which
-    rounds differently.
+    rounds differently. The statistics are float32 for a bfloat16 or
+    float32 x and float64 for a float64 x.
     """
-    xf = x.float()
+    xf = x.to(torch.promote_types(x.dtype, torch.float32))
     mean = xf.mean(dim=(2, 3), keepdim=True)
     m2 = xf.square().mean(dim=(2, 3), keepdim=True)
     var = (m2 - mean.square()).clamp_min(0.0)

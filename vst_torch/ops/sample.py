@@ -68,12 +68,31 @@ def _base_grid(B: int, H: int, W: int, like: torch.Tensor) -> torch.Tensor:
     return torch.stack([xs, ys], 0)[None].expand(B, 2, H, W)
 
 
-def warp(x: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
-    """Backward warp, ``utils/flowtools.py:18-32`` with its quirk: the grid
-    is normalised by ``max(W-1, 1)`` / ``max(H-1, 1)`` and sampled with
-    ``align_corners=False``. x (B, C, H, W); flow (B, 2, H, W) pixels (u, v)."""
+def _warp_grid(x: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
+    """The normalised grid of ``utils/flowtools.py:18-32``: pixel + flow over
+    ``max(W-1, 1)`` / ``max(H-1, 1)``, for sampling with
+    ``align_corners=False`` (the quirk). (B, H, W, 2)."""
     B, C, H, W = x.shape
     vgrid = _base_grid(B, H, W, x) + flow.to(x.dtype)
     gx = 2.0 * vgrid[:, 0] / max(W - 1, 1) - 1.0
     gy = 2.0 * vgrid[:, 1] / max(H - 1, 1) - 1.0
-    return grid_sample(x, torch.stack([gx, gy], -1), align_corners=False)
+    return torch.stack([gx, gy], -1)
+
+
+def warp(x: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
+    """Backward warp, ``utils/flowtools.py:18-32`` with its quirk: the grid
+    is normalised by ``max(W-1, 1)`` / ``max(H-1, 1)`` and sampled with
+    ``align_corners=False``. x (B, C, H, W); flow (B, 2, H, W) pixels (u, v)."""
+    return grid_sample(x, _warp_grid(x, flow), align_corners=False)
+
+
+def warp_masked(x: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
+    """Backward warp with its validity mask folded in
+    (``methods/learning-based/fs_lib.py:5-38``): x and an all-ones tensor go
+    through the grid of :func:`warp` (the same ``max(W-1, 1)`` quirk,
+    ``align_corners=False``, zero padding), the warped ones are binarised at
+    0.9999 and multiply the warped x. x (B, C, H, W); flow (B, 2, H, W)."""
+    grid = _warp_grid(x, flow)
+    out = grid_sample(x, grid, align_corners=False)
+    mask = grid_sample(torch.ones_like(x), grid, align_corners=False)
+    return out * (mask >= 0.9999).to(out.dtype)
