@@ -74,7 +74,24 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
    synthetic host batches, the host's batch time beside the step time. The
    training path launches none of the kernels: their counts stay 0.
 
-Phases 5–13 each drive one path with the kernels' launch counts set to 0
+14. obst: OBST on the card against the CPU (one level at 32×32 in float64,
+   20 L-BFGS iterations, the image within 1e-8 relative; one closure's loss
+   at 64×64 in float32 within 1e-5); `vst_torch.cli eval-obst` at 436×1024
+   on one synthetic 6-frame clip, style 0, [50, 40, 30] (run as [60, 60,
+   40]), RAFT through the kernel: λ = 0 and 2000 in float32, then λ = 2000
+   with --obst-bf16 (DT of obst.run alone, RAFT ms, TCL-ST / TCL-LT, wall
+   seconds and peak memory each; every value finite, TCL-ST at λ = 2000
+   below λ = 0, corr_lookup launched); torch.profiler over one full-size
+   obst.run in float32 and in bfloat16 (the device's busy share).
+15. fc2_metrics: `vst_torch.cli eval-fc2` at 256² on 4 synthetic batches of
+   4: --family obst (λ 0 and 2000), --family faststyle --method johnson
+   (--num-outs 3) and --method ruder; TCL / FID / LPIPS means and the
+   seconds split into the metric nets, FID's host math and the rest
+   (stylizing); InceptionV3 activations and one LPIPS value on the card
+   against the CPU (4 images, float32, 1e-4 relative). The FC2 paths
+   launch none of the kernels.
+
+Phases 5–15 each drive one path with the kernels' launch counts set to 0
 just before it and read just after; a kernel of the path that was never
 launched fails the run. Then the card's name and power limit (nvidia-smi),
 the kernels line and the result line. Float32 with TF32 off. Weights and
@@ -117,7 +134,12 @@ from vst_torch.kernels import pad_conv3x3 as pad_conv3x3_module
 from vst_torch.kernels.corr_lookup import corr_lookup
 from vst_torch.kernels.gemm_rate import gemm_rate, gemm_rate_plain
 from vst_torch.kernels.pad_conv3x3 import MODES, dtype_name, pad_conv3x3, pad_conv3x3_plain
+from vst_torch.metrics.fid import InceptionV3
+from vst_torch.metrics.lpips import LPIPS
+from vst_torch.eval import drivers as drivers_module
+from vst_torch.eval import fc2 as fc2_module
 from vst_torch.models.faststyle import FastStyleNet
+from vst_torch.models.gatys import OBST, PYR_SINTEL
 from vst_torch.nn.conv import cudnn_enabled
 from vst_torch.ops.image import InputPadder
 from vst_torch.perceptual.vgg import Vgg16Features, he_randomized_
@@ -160,6 +182,12 @@ LEARN_STEPS = 30
 HOST_STEPS = 6
 TRAIN_LOSS_RTOL = 1e-4  # card against CPU, f32
 TRAIN_GRAD_RTOL = 1e-3  # card against CPU, f64, L2 per parameter
+OBST_IMAGE_RTOL = 1e-8  # card against CPU, one level in f64
+OBST_LOSS_RTOL = 1e-5  # card against CPU, one closure in f32
+METRIC_RTOL = 1e-4  # InceptionV3 activations and LPIPS, card against CPU, f32
+OBST_FRAMES = 6  # TCL-LT needs a frame past the offset of 5
+FC2_HW = (256, 256)
+FC2_SEED = 14
 
 
 def emit(obj) -> None:
@@ -952,6 +980,218 @@ def phase_train_faststyle(dev):
     emit(record)
 
 
+def obst_level(device, dtype, hw=(32, 32), iters=20, seed=0):
+    """One OBST level on ``device``: ``iters`` compact L-BFGS iterations from
+    a seeded image against a seeded style, content, warp target and mask
+    (temporal weight 2000). Returns (image, losses) on the CPU."""
+    rng = np.random.RandomState(seed)
+    obst = OBST(seed=seed, compute_dtype=dtype, device=device)
+    obst.set_style(rng.rand(2 * hw[0], 2 * hw[1], 3), [hw])
+    x0, content, warp_img = (torch.from_numpy((rng.rand(1, 3, *hw) - 0.45) * 255.0)
+                             .to(device, dtype) for _ in range(3))
+    mask = torch.from_numpy(rng.rand(1, 3, *hw)).to(device, dtype)
+    with torch.no_grad():
+        feats = obst._features(content, ["r42"])
+    x, losses = obst.descend(x0, obst.style_targets[0], feats, warp_img, mask, 2000.0, iters)
+    return x.cpu(), losses.cpu()
+
+
+def obst_closure_loss(device, hw=(64, 64), seed=1):
+    """One float32 OBST closure's loss at ``hw`` (style, content and a live
+    temporal term) on ``device``."""
+    rng = np.random.RandomState(seed)
+    obst = OBST(seed=seed, device=device)
+    obst.set_style(rng.rand(2 * hw[0], 2 * hw[1], 3).astype(np.float32), [hw])
+    x, content, warp_img = (torch.from_numpy(((rng.rand(1, 3, *hw) - 0.45) * 255.0)
+                                             .astype(np.float32)).to(device) for _ in range(3))
+    mask = torch.from_numpy(rng.rand(1, 3, *hw).astype(np.float32)).to(device)
+    with torch.no_grad():
+        feats = obst._features(content, ["r42"])
+        return obst._loss(x, obst.style_targets[0], feats, warp_img, mask, 2000.0).item()
+
+
+def profile_call(fn):
+    """One call of ``fn`` after a warm-up call, timed by the host clock
+    between two synchronize() calls (``wall_ms``), then one more under
+    torch.profiler: the kernels' device ms, the device's busy share of the
+    unprofiled wall (the profiler's own cost, tens of µs a launch, inflates
+    the profiled wall, ``profiled_wall_ms``), the launches and the 8 kernels
+    that take the most."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    profiled_wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
+                      for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
+                     key=lambda k: -k[1])
+    device_ms = sum(ms for _, ms, _ in kernels)
+    return {"wall_ms": wall_ms, "profiled_wall_ms": profiled_wall_ms, "kernel_ms": device_ms,
+            "busy_share": device_ms / wall_ms, "kernel_launches": sum(n for _, _, n in kernels),
+            "top_kernels": [{"name": name[:100], "ms": ms, "calls": n}
+                            for name, ms, n in kernels[:8]]}
+
+
+def profile_obst_frame(dev, dtype):
+    """The busy share of one full-size obst.run (a frame with a warm start,
+    a live mask and λ = 2000), with its peak memory."""
+    rng = np.random.RandomState(2)
+    H, W = SINTEL_HW
+    obst = OBST(seed=0, compute_dtype=dtype, device=dev)
+    obst.set_style(load_style_images(size=256)[0], PYR_SINTEL)
+    img = torch.from_numpy(((rng.rand(1, 3, H, W) - 0.45) * 255.0).astype(np.float32)).to(dev)
+    pre = img + 4.0 * torch.randn_like(img)
+    mask = (torch.rand(1, 1, H, W, device=dev) > 0.2).float()
+    torch.cuda.reset_peak_memory_stats()
+    record = profile_call(lambda: obst.run(pre, img, mask, PYR_SINTEL, weight_tcl=2000.0))
+    record["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    return record
+
+
+def phase_obst(dev):
+    """OBST on the card against the CPU; eval-obst at the Sintel size in f32
+    (λ 0, 2000) and bf16 (λ 2000); the busy share of one frame per dtype."""
+    record = {"phase": "obst", "seconds": {}}
+    t0 = time.perf_counter()
+    got, got_losses = obst_level(dev, torch.float64)
+    want, want_losses = obst_level("cpu", torch.float64)
+    level_rel = ((got - want).abs().max() / want.abs().max()).item()
+    ref = obst_closure_loss("cpu")
+    loss_rel = abs(obst_closure_loss(dev) - ref) / abs(ref)
+    if not (level_rel <= OBST_IMAGE_RTOL and loss_rel <= OBST_LOSS_RTOL
+            and want_losses[-1] < want_losses[0]):
+        raise AssertionError(f"OBST card vs CPU: level {level_rel} > {OBST_IMAGE_RTOL} or "
+                             f"closure loss {loss_rel} > {OBST_LOSS_RTOL}")
+    record["card_vs_cpu"] = {"level_f64_32x32_iters20_max_rel_err": level_rel,
+                             "level_losses_max_rel_err": (
+                                 (got_losses - want_losses).abs().max()
+                                 / want_losses.abs().max()).item(),
+                             "closure_f32_64x64_loss_rel_err": loss_rel, "closure_loss": ref}
+
+    record["seconds"]["card_vs_cpu"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    argv = ["eval-obst", "--hw", *map(str, SINTEL_HW), "--n-videos", "1", "--n-frames",
+            str(OBST_FRAMES), "--n-styles", "1", "--iters-pyr", "50", "40", "30"]
+    record["eval_obst"] = {}
+    reset_counts()
+    with tempfile.TemporaryDirectory() as tmp:
+        for lambdas, extra in (((0, 2000), ()), ((2000,), ("--obst-bf16",))):
+            out_dir = os.path.join(tmp, "bf16" if extra else "f32")
+            summary = cli_main([*argv, "--lambda-tcl", *map(str, lambdas), *extra,
+                                "--out-dir", out_dir])
+            for lam in lambdas:
+                entry = summary[str(lam)]
+                if not all(math.isfinite(v) for v in entry.values()):
+                    raise AssertionError(f"eval-obst {extra} λ={lam}: not finite: {entry}")
+                record["eval_obst"][f"{summary['obst_dtype']}_lambda{lam}"] = {
+                    **entry, "DT_s_per_frame": entry["DT_ms_mean"] / 1e3}
+        written = sorted(os.path.relpath(os.path.join(d, f), tmp)
+                         for d, _, fs in os.walk(tmp) for f in fs)
+    launches = corr_lookup.launches
+    record["seconds"]["eval_obst"] = time.perf_counter() - t0
+    f32 = record["eval_obst"]
+    if not f32["float32_lambda2000"]["TCL-ST_mean"] < f32["float32_lambda0"]["TCL-ST_mean"]:
+        raise AssertionError(f"eval-obst: TCL-ST at λ=2000 not below λ=0: {f32}")
+    if launches <= 0:
+        raise AssertionError("eval-obst never launched the corr_lookup kernel")
+    t0 = time.perf_counter()
+    record.update({"clip": [OBST_FRAMES, *SINTEL_HW], "styles": [0], "iters_pyr": [50, 40, 30],
+                   "written": written, "corr_lookup_launches": launches,
+                   "profile": {name: profile_obst_frame(dev, dtype) for name, dtype in
+                               (("float32", torch.float32), ("bfloat16", torch.bfloat16))}})
+    record["seconds"]["profile"] = time.perf_counter() - t0
+    emit(record)
+    return launches
+
+
+class Stopwatch:
+    """Host seconds spent in wrapped callables, by name (the wrapped metric
+    nets return host values, so their device work is inside)."""
+
+    def __init__(self):
+        self.seconds = {}
+
+    def wrap(self, name, fn):
+        def timed(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                self.seconds[name] = self.seconds.get(name, 0.0) + time.perf_counter() - t0
+
+        return timed
+
+
+def phase_fc2_metrics(dev):
+    """eval-fc2 at 256² on 4 synthetic batches of 4 for OBST, Johnson and
+    Ruder, the seconds split by part; the metric nets on the card against
+    the CPU."""
+    record = {"phase": "fc2_metrics", "hw": list(FC2_HW), "runs": {}}
+    x = torch.from_numpy(np.random.RandomState(0).rand(4, 3, 80, 80).astype(np.float32)) * 2 - 1
+    act_want = InceptionV3(seed=0, device="cpu")(x)
+    act_got = InceptionV3(seed=0, device=dev)(x.to(dev))
+    lp_want = LPIPS(seed=0, device="cpu")(x[:2], x[2:])
+    lp_got = LPIPS(seed=0, device=dev)(x[:2].to(dev), x[2:].to(dev))
+    act_rel = float(np.abs(act_got - act_want).max() / np.abs(act_want).max())
+    lp_rel = abs(lp_got - lp_want) / abs(lp_want)
+    if not (act_rel <= METRIC_RTOL and lp_rel <= METRIC_RTOL):
+        raise AssertionError(f"metric nets card vs CPU: Inception {act_rel}, LPIPS {lp_rel} > "
+                             f"{METRIC_RTOL}")
+    record["card_vs_cpu"] = {"inception_max_rel_err": act_rel, "lpips_rel_err": lp_rel,
+                             "lpips": lp_want}
+
+    # seed 14: every task of the 4 batches has 2 or more samples, so FID takes
+    # the sample-subspace path (a pile of one takes a 2048² sqrtm on the host)
+    argv = ["eval-fc2", "--hw", *map(str, FC2_HW), "--batch-size", "4", "--seed", str(FC2_SEED)]
+    runs = {"obst": ["--family", "obst", "--iters-pyr", "50", "40", "30"],
+            "johnson": ["--family", "faststyle", "--method", "johnson", "--num-outs", "3"],
+            "ruder": ["--family", "faststyle", "--method", "ruder"]}
+    reset_counts()
+    for name, flags in runs.items():
+        watch = Stopwatch()
+        saved = (InceptionV3.__call__, LPIPS.__call__, fc2_module.fid_from_activations,
+                 drivers_module.fid_from_activations)
+        InceptionV3.__call__ = watch.wrap("inception_s", saved[0])
+        LPIPS.__call__ = watch.wrap("lpips_s", saved[1])
+        fc2_module.fid_from_activations = watch.wrap("fid_host_s", saved[2])
+        drivers_module.fid_from_activations = watch.wrap("fid_host_s", saved[3])
+        try:
+            with tempfile.TemporaryDirectory() as out_dir:
+                t0 = time.perf_counter()
+                res = cli_main([*argv, *flags, "--out-dir", out_dir])
+                wall = time.perf_counter() - t0
+                written = sorted(os.path.relpath(os.path.join(d, f), out_dir)
+                                 for d, _, fs in os.walk(out_dir) for f in fs)
+        finally:
+            (InceptionV3.__call__, LPIPS.__call__, fc2_module.fid_from_activations,
+             drivers_module.fid_from_activations) = saved
+        # OBST returns one table a λ, the others one table
+        tables = ({f"lambda{lam}_": t for lam, t in res.items()} if name == "obst"
+                  else {"": res})
+        means = {prefix + k: v for prefix, table in tables.items()
+                 for metric in table.values() for k, v in metric.items()
+                 if k.endswith("mean") and isinstance(v, float)}
+        if not means or not all(math.isfinite(v) for v in means.values()):
+            raise AssertionError(f"eval-fc2 {name}: means missing or not finite: {means}")
+        metric_s = sum(watch.seconds.values())
+        record["runs"][name] = {"means": means, "written": written, "wall_s": wall,
+                                **watch.seconds, "stylize_and_rest_s": wall - metric_s}
+    launches = kernel_launches()
+    if any(launches.values()):
+        raise AssertionError(f"the FC2 paths launched a kernel: {launches}")
+    record["kernel_launches"] = launches
+    emit(record)
+
+
 def kernel_entries(name, source, replaces, measured):
     """The kernels line's entries of one kernel, one per variant."""
     return [{"name": f"{name}_{variant}", "route": "cuda", "source": source,
@@ -994,6 +1234,8 @@ def main() -> int:
     gemm = phase_gemm_rate(dev)
     phase_bench(dev)
     phase_train_faststyle(dev)
+    obst_launches = phase_obst(dev)
+    phase_fc2_metrics(dev)
 
     smi = subprocess.run(["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], check=True, capture_output=True, text=True)
@@ -1007,7 +1249,8 @@ def main() -> int:
          "library_ms": timing["library_ms"], "device_ms": timing["device_ms"],
          "host_ms": timing["host_ms"],
          "launches_by_path": {"main_path": launches, "eval_sintel_ruder": ruder_launches,
-                              **{f"raft_{k}": v for k, v in bf16_launches.items()}}},
+                              **{f"raft_{k}": v for k, v in bf16_launches.items()},
+                              "eval_obst": obst_launches}},
         *kernel_entries("pad_conv3x3", conv_source, "scripts/bisect_im2col.py:20",
                         {f"full_{dt}": per_conv(m) for (_, dt), m in trunk.items()}),
         *kernel_entries("pad_conv3x3", conv_source, "scripts/bisect_kernel_cost.py:15",

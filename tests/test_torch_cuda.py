@@ -2,7 +2,8 @@
 RAFT through it against RAFT with the plain lookup; pad_conv3x3 in its four
 modes and gemm_rate against their plain versions; one training step of each
 feed-forward method on the card against the CPU, and the device cache
-against the same cache on the CPU. Marked ``cuda``; they skip where there
+against the same cache on the CPU; one OBST level (float64) and the FC2
+metric nets (float32) on the card against the CPU. Marked ``cuda``; they skip where there
 is no CUDA device. On a machine with an H100 (``--noconftest``: the suite's
 conftest needs jax, which these tests do not):
 
@@ -19,6 +20,9 @@ from vst_torch.flow.raft import RAFT, coords_grid
 from vst_torch.kernels.corr_lookup import corr_lookup
 from vst_torch.kernels.gemm_rate import gemm_rate, gemm_rate_plain
 from vst_torch.kernels.pad_conv3x3 import MODES, dtype_name, pad_conv3x3, pad_conv3x3_plain
+from vst_torch.metrics.fid import InceptionV3
+from vst_torch.metrics.lpips import LPIPS
+from vst_torch.models.gatys import OBST
 from vst_torch.probes.bisect_im2col import trunk_inputs
 from vst_torch.probes.bisect_mxu import SHAPES as GEMM_SHAPES
 from vst_torch.train.parity import grad_errors, training_step
@@ -265,3 +269,39 @@ def test_device_cache_on_the_card_is_the_cpus(dev, tmp_path):
         for k in want:
             assert got[k].device.type == "cuda"
             torch.testing.assert_close(got[k].cpu(), want[k], atol=0, rtol=0)
+
+
+def obst_level(device, dtype, hw=(32, 32), iters=20, seed=0):
+    """One OBST level on ``device``: 20 compact L-BFGS iterations from a
+    seeded image against a seeded style, content, warp target and mask
+    (temporal weight 2000). Returns (image, losses) on the CPU."""
+    rng = np.random.RandomState(seed)
+    obst = OBST(seed=seed, compute_dtype=dtype, device=device)
+    obst.set_style(rng.rand(2 * hw[0], 2 * hw[1], 3), [hw])
+    x0, content, warp_img = (torch.from_numpy((rng.rand(1, 3, *hw) - 0.45) * 255.0)
+                             .to(device, dtype) for _ in range(3))
+    mask = torch.from_numpy(rng.rand(1, 3, *hw)).to(device, dtype)
+    with torch.no_grad():
+        feats = obst._features(content, ["r42"])
+    x, losses = obst.descend(x0, obst.style_targets[0], feats, warp_img, mask, 2000.0, iters)
+    return x.cpu(), losses.cpu()
+
+
+def test_obst_level_on_the_card_matches_the_cpu(dev):
+    """Float64 (the L-BFGS path amplifies float32 noise; see
+    tests/test_torch_gatys.py): the image within 1e-8 relative."""
+    got, got_losses = obst_level(dev, torch.float64)
+    want, want_losses = obst_level("cpu", torch.float64)
+    assert ((got - want).abs().max() / want.abs().max()).item() <= 1e-8
+    assert ((got_losses - want_losses).abs().max() / want_losses.abs().max()).item() <= 1e-8
+    assert want_losses[-1] < want_losses[0]
+
+
+def test_inception_and_lpips_on_the_card_match_the_cpu(dev):
+    x = torch.from_numpy(np.random.RandomState(0).rand(4, 3, 80, 80).astype(np.float32)) * 2 - 1
+    want = InceptionV3(seed=0, device="cpu")(x)
+    got = InceptionV3(seed=0, device=dev)(x.to(dev))
+    assert np.abs(got - want).max() / np.abs(want).max() <= 1e-4
+    want = LPIPS(seed=0, device="cpu")(x[:2], x[2:])
+    got = LPIPS(seed=0, device=dev)(x[:2].to(dev), x[2:].to(dev))
+    assert abs(got - want) <= 1e-4 * want

@@ -53,6 +53,13 @@ def test_training_modules_are_checked():
         "data/device_cache", "core/metrics", "train/parity")} <= names
 
 
+def test_obst_and_metric_modules_are_checked():
+    names = {str(p.relative_to(ROOT)) for p in SOURCES}
+    assert {f"vst_torch/{m}.py" for m in (
+        "ops/lbfgs", "models/gatys", "metrics/__init__", "metrics/inception", "metrics/fid",
+        "metrics/lpips", "data/fc2", "eval/fc2", "eval/drivers", "cli/__main__")} <= names
+
+
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_vst_imports(path):
     bad = [(line, mod) for line, mod in _imported_roots(path) if mod in FORBIDDEN]

@@ -49,6 +49,18 @@ def test_gram_matrix(shape):
     assert torch.equal(losses.gram_matrix_obst(_nchw(x)), losses.gram_matrix(_nchw(x)))
 
 
+@pytest.mark.parametrize("shape", [(2, 7, 9, 5), (1, 16, 16, 64)])
+def test_gram_matrix_bf16_accumulates_and_returns_float32(shape):
+    """vst's rule (``preferred_element_type``): bf16 features give a float32
+    Gram, the float32 product of the bf16 values; float64 stays float64."""
+    x = np.random.RandomState(2).randn(*shape).astype(np.float32)
+    want = jlosses.gram_matrix(jnp.asarray(x).astype(jnp.bfloat16))
+    got = losses.gram_matrix(_nchw(x).to(torch.bfloat16))
+    assert want.dtype == jnp.float32 and got.dtype == torch.float32
+    assert _rel(got.numpy(), np.asarray(want)) <= 1e-6
+    assert losses.gram_matrix(_nchw(x).double()).dtype == torch.float64
+
+
 def _tv_value_and_grad(x):
     jv, jg = jax.value_and_grad(jlosses.tv_loss)(jnp.asarray(x))
     t = _nchw(x).requires_grad_()
@@ -126,6 +138,35 @@ def test_caffe_vgg(pool):
         got = net(x, keys)
     for g, w in zip(got, want):
         assert _rel(_nhwc(g), w) <= RTOL
+
+
+ALL_CAFFE_KEYS = ["r11", "r12", "p1", "r21", "r22", "p2", "r31", "r32", "r33", "r34", "p3",
+                  "r41", "r42", "r43", "r44", "p4", "r51"]
+
+
+@pytest.mark.parametrize("keys", [["r21", "r31", "r41"], ["r42"], ["r21", "r31", "r41", "r42"],
+                                  ["r42", "r21"], ["p1"], ALL_CAFFE_KEYS],
+                         ids=["style", "content", "obst_closure", "reordered", "p1", "all"])
+def test_caffe_vgg_stops_after_its_deepest_key(keys):
+    """The key sets OBST asks for (and others) give the outputs of the whole
+    pass bit for bit, in the asked order; the layers past the deepest key
+    do not run."""
+    net = _he(vgg.CaffeVGG("max"), 5)
+    x = vgg.obst_prep(_nchw(_img(6, (1, 32, 32, 3))))
+    ran = []
+    hooks = [getattr(net, name).register_forward_hook(lambda m, i, o, n=name: ran.append(n))
+             for name, ch in vgg.CAFFE_CFG if ch is not None]
+    with torch.no_grad():
+        whole = dict(zip(ALL_CAFFE_KEYS, net(x, ALL_CAFFE_KEYS)))
+        del ran[:]
+        got = net(x, keys)
+    for h in hooks:
+        h.remove()
+    assert len(got) == len(keys)
+    for k, g in zip(keys, got):
+        assert torch.equal(g, whole[k]), k
+    deepest = max(ALL_CAFFE_KEYS.index(k) for k in keys)
+    assert ran[-1] == [n for n, ch in vgg.CAFFE_CFG[:deepest + 1] if ch is not None][-1]
 
 
 def test_obst_prep_postp():

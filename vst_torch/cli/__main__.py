@@ -7,6 +7,10 @@ family's training and evaluation, and the benchmarks.
     python -m vst_torch.cli eval-sintel [--method johnson|dumoulin|huang|reconet|ruder]
                                         [--hw 436 1024] [--sintel-dir DIR] [--raft-bf16]
     python -m vst_torch.cli stylize-video [--source DIR|VIDEO] [--batch-size 8] [--bf16]
+    python -m vst_torch.cli eval-obst [--hw 436 1024] [--iters-pyr 50 40 30]
+                                      [--lambda-tcl 0 2000] [--obst-bf16] [--sintel-dir DIR]
+    python -m vst_torch.cli eval-fc2 --family obst|faststyle [--method johnson|…|ruder]
+                                     [--hw 256 256] [--data-dir DIR]
     python -m vst_torch.cli bench
     python -m vst_torch.cli bench-raft [--hw 436 1024] [--iters 5] [--out-dir DIR]
 
@@ -45,6 +49,26 @@ the synthetic clip, cropped to multiples of 4, stylized in chunks of ``--batch-s
 tail chunk padded), ``--bf16`` casting the whole net; writes PNGs and, where
 imageio is installed, a video, and prints a JSON line of throughput.
 
+``eval-obst``: OBST (L-BFGS on the image against a caffe VGG19's Grams,
+coarse to fine over the pyramid that ``--iters-pyr`` sets under ``--hw``)
+streamed over Sintel (``--sintel-dir``) or, without it, ``--n-videos``
+synthetic affine-motion clips of ``--n-frames`` frames scored through RAFT,
+once per ``--lambda-tcl``, for the first ``--n-styles`` of the 3 styles;
+``--obst-bf16`` runs the VGG in bfloat16 (Grams
+and losses accumulate in float32). Writes ``<out-dir>/<λ>/{TCL-ST,TCL-LT,DT,
+RAFT-MS}.json`` and merges a ``summary.json`` (DT of ``obst.run`` alone,
+TCL means, RAFT ms, wall seconds and, on a card, peak memory, per λ).
+
+``eval-fc2``: the FC2 metrics on the eval split of a corpus (``--data-dir``
+holding ``DATAFiles``, ``styled-files``, ``styled-files3``) or on 4 synthetic
+batches of ``--batch-size``. ``--family obst`` runs OBST's protocol (TCL,
+FID) once per ``--obst-lambdas`` into ``<out-dir>/<λ>/``; ``--family
+faststyle`` scores ``--method``'s net (``--ckpt-dir``, a state_dict file, or
+a seeded net) with TCL / FID / LPIPS through the harness, or, for Ruder, its
+two-frame protocol. InceptionV3 and AlexNet are vst's seeded He-randomized
+nets (no weights ship with the repository), labelled "random-he" in the
+JSONs; InceptionV3 needs images of 75×75 or more.
+
 ``bench`` runs ``vst_torch.bench``. ``bench-raft`` times the Sintel eval
 path's RAFT pair program, forward and backward flow of one frame pair in one
 call at batch 2 (``vst/eval/sintel.py:compute_raft_pair``), per variant:
@@ -55,8 +79,9 @@ for ``f32`` and ``bf16_full_pad64``; and each variant's flow against
 ``f32``'s. It prints one JSON line and writes it to
 ``<out-dir>/raft_timing.json``. Every variant gets the same weights.
 
-Not ported yet: ``eval-sintel --family stargan|stargan2|cyclegan`` and the
-other subcommands (``ROADMAP.md`` §1).
+Not ported yet: ``eval-sintel --family stargan|stargan2|cyclegan``,
+``eval-fc2 --family stargan|stargan2`` and the other subcommands
+(``ROADMAP.md`` §1).
 """
 
 from __future__ import annotations
@@ -74,13 +99,19 @@ from vst_torch import bench, set_f32_precision
 from vst_torch.core.metrics import MetricsLogger
 from vst_torch.core.timing import windows_ms
 from vst_torch.data.device_cache import DeviceFC2Cache
+from vst_torch.data.fc2 import DatasetFC2, FC2Loader, synthetic_fc2_batches, train_eval_split
 from vst_torch.data.loader import NpyDirDataset
 from vst_torch.data.styles import load_style_images
 from vst_torch.data.synthetic import MARGIN, AffineMotionGenerator, _texture, synthetic_batch
-from vst_torch.eval.drivers import evaluate_sintel_faststyle, evaluate_sintel_ruder
+from vst_torch.eval.drivers import (evaluate_fc2_obst, evaluate_fc2_ruder,
+                                    evaluate_sintel_faststyle, evaluate_sintel_obst,
+                                    evaluate_sintel_ruder)
+from vst_torch.eval.fc2 import calculate_metrics
 from vst_torch.eval.sintel import SintelVideo, load_sintel_videos
 from vst_torch.eval.video import _writer, write_png
 from vst_torch.flow.raft import RAFT
+from vst_torch.metrics.fid import InceptionV3
+from vst_torch.models.gatys import OBST
 from vst_torch.ops.image import InputPadder
 from vst_torch.train.faststyle import FastStyleTrainer, batch_to_tensors
 from vst_torch.train.registry import FASTSTYLE_METHODS, bootstrap_net, method_net, select_method
@@ -226,6 +257,162 @@ def cmd_eval_sintel(args) -> Dict:
     else:
         results = evaluate_sintel_faststyle(net, state, videos, raft_apply, **kw)
     print({k: v[f"{k}_mean"] for k, v in results.items()})
+    return results
+
+
+def obst_pyramid(hw, iters_pyr) -> Tuple[Tuple[int, int], ...]:
+    """vst's pyramid: one level per ``--iters-pyr`` entry, halving down from
+    ``hw`` (``vst/cli/__main__.py:869-871``)."""
+    H, W = hw
+    L = len(iters_pyr)
+    return tuple((H >> (L - 1 - i), W >> (L - 1 - i)) for i in range(L))
+
+
+def _obst(args, device: torch.device) -> OBST:
+    return OBST(max_iters=tuple(args.iters_pyr), seed=args.seed,
+                compute_dtype=BF16 if args.obst_bf16 else torch.float32, device=device)
+
+
+def _obst_videos(args):
+    """Sintel from ``--sintel-dir``, or vst's synthetic clips: one texture
+    generator for all, a motion generator seeded per video."""
+    if args.sintel_dir:
+        return load_sintel_videos(args.sintel_dir)[:args.n_videos]
+    rng = np.random.RandomState(args.seed)
+    H, W = args.hw
+    videos = []
+    for v in range(args.n_videos):
+        gen = AffineMotionGenerator(crop_hw=(H, W), seed=args.seed + v)
+        frames, _, _ = gen.generate(_texture(rng, (H + MARGIN, W + MARGIN)),
+                                    n_frames=args.n_frames)
+        videos.append(SintelVideo(f"synthetic_{v + 1}", frames))
+    return videos
+
+
+def cmd_eval_obst(args) -> Dict:
+    """OBST on Sintel at each ``--lambda-tcl`` (``obst_eval.py:413-566``),
+    and a ``summary.json`` merged into the one already in ``--out-dir``."""
+    device = _device(args)
+    set_f32_precision()
+    videos = _obst_videos(args)
+    raft = _make_raft(args, device)
+    raft_apply = torch.no_grad()(lambda a, b: raft(a, b))
+    styles = load_style_images(args.style_dir, size=256)[:args.n_styles]
+    pyr = obst_pyramid(args.hw, args.iters_pyr)
+    obst = _obst(args, device)
+    summary = {
+        "hw": list(args.hw), "n_videos": args.n_videos, "n_frames": args.n_frames,
+        "iters_pyr": list(args.iters_pyr), "vgg_backbone": "random-he",
+        "device": device_name(device),
+        "obst_dtype": "bfloat16" if args.obst_bf16 else "float32",
+        "methodology": (
+            "DT wraps obst.run alone (the reference's t_start/t_end, obst_eval.py:524-531), "
+            "timed by CUDA events between two synchronize() calls on a card and by the host "
+            "clock on the CPU; per-frame RAFT (forward and backward, and the t-5 pair) runs "
+            "outside it and is RAFT_ms_mean. L-BFGS runs the reference driver's closure-call "
+            "counts: [50,40,30] -> [60,60,40] (vst_torch.ops.lbfgs.torch_eval_counts)."),
+    }
+    for wt in args.lambda_tcl:
+        if device.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(device)
+        t0 = time.time()
+        res = evaluate_sintel_obst(obst, videos, raft_apply, styles, pyr, weight_tcl=float(wt),
+                                   out_path=os.path.join(args.out_dir, str(int(wt))))
+        entry = summary[str(int(wt))] = {
+            "DT_ms_mean": float(np.mean(list(res["DT"].values()))),
+            "TCL-ST_mean": float(np.mean(list(res["TCL-ST"].values()))),
+            "TCL-LT_mean": float(np.mean(list(res["TCL-LT"].values()))),
+            "RAFT_ms_mean": (float(np.mean(list(res["RAFT-MS"].values())))
+                             if "RAFT-MS" in res else None),
+            "wall_s": time.time() - t0,
+            "peak_mem_gib": (torch.cuda.max_memory_allocated(device) / 2 ** 30
+                             if device.type == "cuda" else None)}
+        print(f"lambda_tcl={wt}: TCL-ST {entry['TCL-ST_mean']:.4f} "
+              f"DT {entry['DT_ms_mean']:.0f} ms/frame", flush=True)
+    os.makedirs(args.out_dir, exist_ok=True)
+    # merge: runs at other λ (or dtypes) write into the same summary
+    summary_path = os.path.join(args.out_dir, "summary.json")
+    if os.path.exists(summary_path):
+        with open(summary_path) as f:
+            summary = {**json.load(f), **summary}
+    with open(summary_path, "w") as f:
+        json.dump(summary, f, indent=2, sort_keys=True)
+    return summary
+
+
+def _fc2_eval_batches(args, num_dom: int):
+    """The eval split of the corpus at ``--data-dir`` (``DATAFiles`` and the
+    two styled trees), else 4 synthetic batches."""
+    if args.data_dir and os.path.isdir(os.path.join(args.data_dir, "DATAFiles")):
+        ds = DatasetFC2(*(os.path.join(args.data_dir, d)
+                          for d in ("DATAFiles", "styled-files", "styled-files3")),
+                        num_dom=num_dom, base_len=None)
+        _, ev = train_eval_split(len(ds), split=args.split, seed=args.seed)
+        return list(FC2Loader(ds, ev, args.batch_size, seed=args.seed).epoch(shuffle=False))
+    return synthetic_fc2_batches(4, args.batch_size, hw=tuple(args.hw), num_dom=num_dom,
+                                 seed=args.seed)
+
+
+def _fc2_obst(args, batches, num_dom: int, device: torch.device) -> Dict:
+    """OBST's own FC2 protocol (``obst_eval.py:570-724``), TCL and FID, one
+    out-subdir per ``--obst-lambdas`` (the reference's eval_fc2/{0,2000})."""
+    for b in batches:  # the harness speaks [−1, 1]; OBST takes [0, 1]
+        for k in ("x_src", "x2_src", "x_ref"):
+            b[k] = (np.asarray(b[k]) + 1.0) / 2.0
+    styles = load_style_images(args.style_dir, size=256)[:3]
+    obst = _obst(args, device)
+    inception = InceptionV3(seed=0, device=device)
+    results = {}
+    for wt in args.obst_lambdas:
+        res = results[str(int(wt))] = evaluate_fc2_obst(
+            obst, batches, styles, obst_pyramid(args.hw, args.iters_pyr), weight_tcl=float(wt),
+            num_domains=num_dom, out_dir=os.path.join(args.out_dir, str(int(wt))),
+            inception=inception)
+        print(f"lambda_tcl={wt}: TCL {res['TCL'].get('TCL/mean', float('nan')):.4f} "
+              f"FID {res['FID'].get('FID/mean', float('nan')):.2f}", flush=True)
+    return results
+
+
+def cmd_eval_fc2(args) -> Dict:
+    """The FC2 metrics (the reference's ``--mode fc2`` drivers)."""
+    if args.family in ("stargan", "stargan2"):
+        raise SystemExit(f"eval-fc2 --family {args.family}: the GAN families are not ported "
+                         "yet (ROADMAP.md §1 item 6)")
+    device = _device(args)
+    set_f32_precision()
+    num_dom = args.num_domains
+    batches = _fc2_eval_batches(args, num_dom)
+    if args.family == "obst":
+        return _fc2_obst(args, batches, num_dom, device)
+
+    args.n_styles = max(num_dom - 1, 1)
+    torch.manual_seed(args.seed)
+    net = method_net(args.method, args.n_styles).to(device).eval()
+    if args.ckpt_dir:
+        net.load_state_dict(load_state(args.ckpt_dir))
+    if args.method == "ruder":  # its two-frame protocol (fast_style_transfer.py:640-676)
+        pre = _load_pre_style(args, device)
+        res = evaluate_fc2_ruder(net, net.state_dict(), pre, pre.state_dict(), batches,
+                                 num_domains=num_dom, out_dir=args.out_dir, device=device)
+        print(f"ruder FC2: TCL {res['TCL'].get('TCL_mean', float('nan')):.4f} "
+              f"FID {res['FID'].get('FID_mean', float('nan')):.2f}", flush=True)
+        return res
+
+    def style_fn(x, y, mode, rng, x_ref):
+        # the net runs [0, 1] → [0, 255]; the harness speaks [−1, 1]; the
+        # batch's style is its first sample's target, as in vst
+        sid = (y[0] - 1).clamp(min=0)
+        out = (net((x + 1.0) / 2.0, 1.0, sid)[1] / 255.0).clamp(0.0, 1.0)
+        return out * 2.0 - 1.0
+
+    # a per-style head ignores the rng: within-chunk LPIPS is degenerate
+    results = calculate_metrics(style_fn, batches, num_domains=num_dom, mode=args.mode,
+                                num_outs_per_domain=args.num_outs, out_dir=args.out_dir,
+                                rng_seed=args.seed, deterministic=True, device=device)
+    for name, d in results.items():
+        key = f"{name}_{args.mode}/mean"
+        if key in d:
+            print(f"{name}: {d[key]:.4f}", flush=True)
     return results
 
 
@@ -546,6 +733,54 @@ def parser() -> argparse.ArgumentParser:
                    help="synthetic clip length when no --source")
     s.add_argument("--bf16", action="store_true")
     s.set_defaults(fn=cmd_stylize_video)
+
+    s = sub.add_parser("eval-obst", help="OBST TCL-ST / TCL-LT / DT on Sintel")
+    _add_common(s)
+    s.add_argument("--sintel-dir", default=None)
+    s.add_argument("--style-dir", default=None)
+    s.add_argument("--n-videos", type=int, default=2)
+    s.add_argument("--n-frames", type=int, default=8)
+    s.add_argument("--n-styles", type=int, default=3, choices=(1, 2, 3),
+                   help="the first N of the 3 styles (vst runs all 3)")
+    s.add_argument("--iters-pyr", type=int, nargs="+", default=[50, 40, 30],
+                   help="L-BFGS iterations a pyramid level, as the reference configures them "
+                        "(run as torch's closure-call counts)")
+    s.add_argument("--lambda-tcl", type=float, nargs="+", default=[0.0, 2000.0])
+    s.add_argument("--raft-iters", type=int, default=20)
+    s.add_argument("--raft-ckpt", default=None, help="the reference's RAFT state_dict file")
+    s.add_argument("--raft-bf16", action=argparse.BooleanOptionalAction, default=None,
+                   help="bf16 RAFT encoders (default off: vst turns them on only on a TPU)")
+    s.add_argument("--obst-bf16", action="store_true",
+                   help="bf16 VGG closures (float32 Gram / loss accumulation)")
+    s.set_defaults(fn=cmd_eval_obst)
+
+    s = sub.add_parser("eval-fc2", help="FC2 TCL / FID / LPIPS")
+    _add_common(s)
+    s.add_argument("--family", default="stargan2",
+                   choices=["stargan2", "stargan", "faststyle", "obst"])
+    s.add_argument("--method", default="johnson", choices=tuple(FASTSTYLE_METHODS),
+                   help="the faststyle family's head")
+    s.add_argument("--style-dir", default=None, help="style images (obst family)")
+    s.add_argument("--iters-pyr", type=int, nargs="+", default=[50, 40, 30],
+                   help="L-BFGS iterations a pyramid level (obst family)")
+    s.add_argument("--obst-lambdas", type=float, nargs="+", default=[0.0, 2000.0],
+                   help="temporal weights, one out-subdir each (obst family)")
+    s.add_argument("--obst-bf16", action="store_true", help="bf16 VGG closures (obst family)")
+    s.add_argument("--mode", default="latent", choices=["latent", "reference"])
+    s.add_argument("--num-domains", type=int, default=4)
+    s.add_argument("--num-outs", type=int, default=3,
+                   help="fakes an eval sample (the reference uses 10)")
+    s.add_argument("--batch-size", type=int, default=4)
+    s.add_argument("--data-dir", default=None,
+                   help="FC2 corpus root (DATAFiles, styled-files, styled-files3); 4 "
+                        "synthetic batches if omitted")
+    s.add_argument("--split", type=float, default=0.97)
+    s.add_argument("--ckpt-dir", default=None,
+                   help="the method's FastStyleNet state_dict file (reference key names)")
+    s.add_argument("--pre-style-ckpt", default="runs/johnson.pt",
+                   help="Ruder's frame-0 bootstrap, a FastStyleNet state_dict file "
+                        "(fs_ruder.py:25-34); a seeded net when the file is absent")
+    s.set_defaults(fn=cmd_eval_fc2)
 
     s = sub.add_parser("bench", help="styled frames/s of FastStyleNet at 436x1024")
     s.set_defaults(fn=cmd_bench)

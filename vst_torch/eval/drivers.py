@@ -1,28 +1,39 @@
-"""The feed-forward family's Sintel drivers, port of
-``vst/eval/drivers.py:29-73`` (Johnson, Dumoulin, Huang, ReCoNet through the
-generic harness) and ``:378-506`` (Ruder's streaming protocol).
+"""Per-family Sintel and FC2 drivers, port of ``vst/eval/drivers.py``:
 
-The harness normalises frames with mean/std 0.5
+* the feed-forward family on Sintel (``:29-73``: Johnson, Dumoulin, Huang,
+  ReCoNet through the generic harness; ``:378-506``: Ruder's streaming
+  protocol) and on FC2 (``:509-597``, Ruder);
+* OBST on Sintel (``:147-279``, streaming with a warm start from the warped
+  previous stylized frame) and on FC2 (``:282-375``).
+
+The feed-forward harness normalises frames with mean/std 0.5
 (``fast_style_transfer.py:407-410``): the net sees [−1, 1] frames, and so
 does RAFT, which applies its own 2·(x/255)−1 on top (``raft.py:89-90``).
 Outputs are clamp(out/255, 0, 1); the style-3 grayscale is a save-time
-effect only.
+effect only. OBST works in caffe space (BGR ×255 about the mean).
 """
 
 from __future__ import annotations
 
+import os
+from collections import OrderedDict
 from typing import Callable, Optional
 
 import numpy as np
 import torch
 
 from vst_torch import set_f32_precision
+from vst_torch.core.metrics import save_json
 from vst_torch.core.timing import call_ms
+from vst_torch.data.fc2 import to_grayscale3
+from vst_torch.eval.fc2 import batch_to_device, to_nchw
 from vst_torch.eval.sintel import (aggregate_results, evaluate_videos, flows_to_device,
                                    frames_to_device, tcl_value)
+from vst_torch.metrics.fid import InceptionV3, fid_from_activations
 from vst_torch.ops.flowtools import fbc_mask
 from vst_torch.ops.image import InputPadder
 from vst_torch.ops.sample import warp
+from vst_torch.perceptual.vgg import obst_postp, obst_prep
 
 
 def faststyle_stylize_fn(model, state_dict):
@@ -143,3 +154,223 @@ def evaluate_sintel_ruder(model, state_dict, pre_model, pre_state_dict, videos,
 
     nd = (num_domains or len(styles) + 1) - 1
     return aggregate_results({"TCL-ST": tcl_st, "TCL-LT": tcl_lt, "DT": dt}, nd, out_path)
+
+
+def fc2_tasks(num_domains: int):
+    """vst's FC2 task grid: content to each style, each style to content."""
+    return ([f"style02style{d}" for d in range(1, num_domains)]
+            + [f"style{d}2style0" for d in range(1, num_domains)])
+
+
+def _stack(pile):
+    """A pile of (3, H, W) images, tensors on the device or host arrays."""
+    return torch.stack(pile) if torch.is_tensor(pile[0]) else np.stack(pile)
+
+
+def _fc2_summaries(tcl_vals, fakes, refs, tasks, inception, sep, out_dir):
+    """TCL and FID per task, their means and the FID backbone, with ``sep``
+    between metric and task (``/`` for OBST, ``_`` for Ruder, as in vst);
+    written to ``<out_dir>/{TCL,FID}.json``."""
+    tcl_dict, fid_dict = OrderedDict(), OrderedDict()
+    for task in tasks:
+        if not fakes[task]:
+            continue
+        tcl_dict[f"TCL{sep}{task}"] = float(np.mean(tcl_vals[task]))
+        fid_dict[f"FID{sep}{task}"] = fid_from_activations(inception(_stack(refs[task])),
+                                                           inception(_stack(fakes[task])))
+    for d, name in ((tcl_dict, "TCL"), (fid_dict, "FID")):
+        if d:
+            d[f"{name}{sep}mean"] = float(np.mean(
+                [v for k, v in d.items() if not k.endswith(f"{sep}mean")]))
+            if name == "FID":  # the metric net's provenance
+                d[f"FID{sep}backbone"] = getattr(inception, "backbone", "random-he")
+        if out_dir:
+            save_json(d, os.path.join(out_dir, f"{name}.json"), aggregate=False)
+    return {"TCL": tcl_dict, "FID": fid_dict}
+
+
+def evaluate_sintel_obst(obst, videos, raft_apply: Callable, style_images, pyr_shapes,
+                         weight_tcl: float = 0.0, out_path=None, lt_len: int = 5,
+                         literal_mask_zero: bool = False):
+    """OBST's streaming Sintel evaluation (``obst_eval.py:413-566``) on
+    ``obst.device``. Per frame: RAFT flow against the previous frame, the fb
+    mask without the occlusion term, the warm start from the warped previous
+    STYLIZED frame, L-BFGS, then TCL-ST against the warm start and TCL-LT
+    through RAFT to frame t−5. Frame 0 runs from the content under a zero
+    mask (``obst_eval.py:507``). RAFT is fed the caffe-space frames, as vst
+    feeds it.
+
+    ``literal_mask_zero``: the living reference zeroes ``mask_last`` just
+    before ``net.run`` (``obst_eval.py:510``, a leftover debug line), which
+    makes the temporal term inert and TCL-ST ≡ 0; the default keeps the live
+    mask, as the reference's committed JSONs show (PARITY.md rows 45–46).
+    The warm start always uses the live mask.
+
+    DT is ``obst.run`` alone, timed between two ``synchronize()``s
+    (``timing.call_ms``); RAFT is timed apart (RAFT-MS, not a reference
+    file). Before the timed frames, one run per (pyramid, weight) warms up.
+    Returns the TCL-ST / TCL-LT / DT (/ RAFT-MS) tables, written with
+    ``_mean`` keys to ``<out_path>/<ID>.json``."""
+    device = obst.device
+    raft_ms_acc = []
+
+    def compute_raft(i1, i2):
+        def flow():
+            padder = InputPadder(i1.shape)
+            a, b = padder.pad(i1, i2)
+            return padder.unpad(raft_apply(a, b)[1])
+
+        up, ms = call_ms(flow, device)
+        raft_ms_acc.append(ms)
+        return up
+
+    tcl_st, tcl_lt, dt, raft_ms = {}, {}, {}, {}
+    n_styles = style_images.shape[0]
+    warmed = set()  # (pyramid, weight) runs already made
+    for video in videos:
+        frames = torch.from_numpy(np.ascontiguousarray(video.frames)).permute(0, 3, 1, 2).to(
+            device)
+        for sid in range(n_styles):
+            obst.set_style(style_images[sid], pyr_shapes)
+            key = f"{video.name}_s{sid + 1}"
+            wkey = (tuple(map(tuple, pyr_shapes)), float(weight_tcl))
+            if wkey not in warmed:
+                warmed.add(wkey)
+                img0 = obst_prep(frames[0:1])
+                call_ms(lambda: obst.run(img0, img0, torch.ones_like(img0[:, :1]), pyr_shapes,
+                                         weight_tcl=weight_tcl), device)
+            st_vals, lt_vals, dt_vals = [], [], []
+            prev_styled = None
+            styled_hist = []
+            for i in range(len(video)):
+                img = obst_prep(frames[i:i + 1])
+                if i == 0:
+                    pre = img
+                    mask = torch.zeros_like(img[:, :1])
+                else:
+                    prev = obst_prep(frames[i - 1:i])
+                    ff = compute_raft(prev, img)
+                    bf = compute_raft(img, prev)
+                    mask = fbc_mask(ff, bf, use_occlusion=False)
+                    pre = obst.warm_start(prev_styled, img, bf, mask)
+                run_mask = torch.zeros_like(mask) if literal_mask_zero else mask
+                styled, ms = call_ms(lambda: obst.run(pre, img, run_mask, pyr_shapes,
+                                                      weight_tcl=weight_tcl), device)
+                dt_vals.append(ms)
+                if i > 0:
+                    st_vals.append(float(tcl_value(run_mask, styled, pre)))
+                if i >= lt_len:
+                    past = obst_prep(frames[i - lt_len:i - lt_len + 1])
+                    ff5 = compute_raft(past, img)
+                    bf5 = compute_raft(img, past)
+                    m5 = fbc_mask(ff5, bf5, use_occlusion=False)
+                    lt_vals.append(float(tcl_value(m5, styled, warp(styled_hist[i - lt_len],
+                                                                     bf5))))
+                prev_styled = styled
+                styled_hist.append(styled)
+            tcl_st[f"TCL-ST_{key}"] = float(np.mean(st_vals)) if st_vals else 0.0
+            tcl_lt[f"TCL-LT_{key}"] = float(np.mean(lt_vals)) if lt_vals else 0.0
+            dt[f"DT_{key}"] = float(np.mean(dt_vals))
+            if raft_ms_acc:
+                raft_ms[f"RAFT-MS_{key}"] = float(np.mean(raft_ms_acc))
+                raft_ms_acc.clear()
+
+    results = {"TCL-ST": tcl_st, "TCL-LT": tcl_lt, "DT": dt}
+    if out_path:
+        for out_id, data in results.items():
+            save_json(data, os.path.join(out_path, out_id + ".json"), num_styles=n_styles)
+        if raft_ms:  # not a reference file: the port's own record
+            save_json(raft_ms, os.path.join(out_path, "RAFT-MS.json"), num_styles=n_styles)
+    if raft_ms:
+        results["RAFT-MS"] = raft_ms
+    return results
+
+
+def evaluate_fc2_obst(obst, eval_batches, style_images,
+                      pyr_shapes=((64, 64), (128, 128), (256, 256)), weight_tcl: float = 0.0,
+                      num_domains: int = 4, out_dir=None, inception=None):
+    """OBST on FC2 (``obst_eval.py:570-724``): per eval sample with
+    y_trg ≠ y_org and y_trg ≠ 0, stylize frame 1 from its content under a
+    zero mask, warp it with the ground-truth flow, stylize frame 2 warm
+    started from the warp under the mask and the temporal weight, and take
+    the masked RMS against the warp. FID per task between the references and
+    the frame-1 fakes; style 3's references are grayscale (``postp2``,
+    :668). Batches follow ``vst_torch.data.fc2.BATCH_KEYS`` with images in
+    [0, 1] RGB; the caffe preprocessing is done here. The style targets are
+    set again only when the style changes. This protocol has no LPIPS."""
+    device = obst.device
+    inception = inception or InceptionV3(seed=0, device=device)
+    tasks = fc2_tasks(num_domains)
+    tcl_vals = {t: [] for t in tasks}
+    fakes = {t: [] for t in tasks}
+    refs = {t: [] for t in tasks}
+    style_cache = {}
+    for batch in eval_batches:
+        b = batch_to_device(batch, device)
+        y_org, y_trg = b["y_src"], b["y_ref"]
+        for k in range(y_org.shape[0]):
+            if y_org[k] == y_trg[k] or y_trg[k] == 0:
+                continue
+            task = f"style{y_org[k]}2style{y_trg[k]}"
+            if task not in tcl_vals:  # only (0,d) / (d,0) / (d,d) pairs are on the grid
+                continue
+            sid = int(y_trg[k]) - 1
+            if sid not in style_cache:
+                obst.set_style(style_images[sid], pyr_shapes)
+                style_cache = {sid: True}
+            c1 = obst_prep(b["x_src"][k:k + 1])
+            c2 = obst_prep(b["x2_src"][k:k + 1])
+            m = b["mask"][k:k + 1]
+            x_fake = obst.run(c1, c1, torch.zeros_like(m), pyr_shapes, weight_tcl=weight_tcl)
+            x_warp = warp(x_fake, b["flow"][k:k + 1])
+            x_fake2 = obst.run(x_warp, c2, m, pyr_shapes, weight_tcl=weight_tcl)
+            tcl_vals[task].append(float(tcl_value(m, x_fake2, x_warp)))
+            ref = b["x_ref"][k]
+            if sid == 2:  # style 3's references in grayscale (postp2)
+                ref = to_nchw(to_grayscale3(ref.transpose(1, 2, 0))[None])[0]
+            fakes[task].append(obst_postp(x_fake)[0].cpu().numpy())
+            refs[task].append(ref)
+    return _fc2_summaries(tcl_vals, fakes, refs, tasks, inception, "/", out_dir)
+
+
+@torch.no_grad()
+def evaluate_fc2_ruder(model, state_dict, pre_model, pre_state_dict, eval_batches,
+                       num_domains: int = 4, out_dir=None, inception=None, device="cuda"):
+    """Ruder on FC2 (``fast_style_transfer.py:640-676``): per (y_org,
+    y_trg ≠ y_org, y_trg ≠ 0) sample, ``x_fake = bootstrap(x)``,
+    ``x_warp = warp(x_fake, flow)``, ``x_fake2 = net(cat(x2, mask, x_warp))``,
+    TCL = RMS(mask·(x_fake2 − x_warp)) without clamps (the reference's are
+    commented out, :661-664); FID per task between the references mapped to
+    [0, 1] and the clipped frame-1 fakes. Batches in [−1, 1]. The
+    per-sample results stay on the device until one fetch at the end.
+    ``model`` / ``pre_model`` lie on ``device`` and get their ``state_dict``
+    here."""
+    set_f32_precision()
+    device = torch.device(device)
+    for net, sd in ((model, state_dict), (pre_model, pre_state_dict)):
+        net.load_state_dict(sd)
+        net.eval()
+    inception = inception or InceptionV3(seed=0, device=device)
+    tasks = fc2_tasks(num_domains)
+    tcl_vals = {t: [] for t in tasks}
+    fakes = {t: [] for t in tasks}
+    refs = {t: [] for t in tasks}
+    for batch in eval_batches:
+        b = batch_to_device(batch, device)
+        y_org, y_trg = b["y_src"], b["y_ref"]
+        for k in range(y_org.shape[0]):
+            if y_org[k] == y_trg[k] or y_trg[k] == 0:
+                continue
+            task = f"style{y_org[k]}2style{y_trg[k]}"
+            if task not in tcl_vals:
+                continue
+            sid = torch.tensor(int(y_trg[k]) - 1, device=device)
+            xf = pre_model(b["x_src"][k:k + 1], 1.0, sid)[1] / 255.0
+            xw = warp(xf, b["flow"][k:k + 1])
+            m = b["mask"][k:k + 1]
+            xf2 = model(torch.cat([b["x2_src"][k:k + 1], m, xw], 1), 1.0, sid)[1] / 255.0
+            tcl_vals[task].append(tcl_value(m, xf2, xw))
+            fakes[task].append(xf[0].clamp(0.0, 1.0))
+            refs[task].append(np.clip((b["x_ref"][k] + 1.0) / 2.0, 0.0, 1.0))
+    tcl_vals = {t: torch.stack(v).cpu().numpy() if v else v for t, v in tcl_vals.items()}
+    return _fc2_summaries(tcl_vals, fakes, refs, tasks, inception, "_", out_dir)

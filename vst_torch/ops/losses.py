@@ -15,10 +15,14 @@ def gram_matrix(x: torch.Tensor) -> torch.Tensor:
     """Batched Gram matrix (``fast_style_transfer.py:813-817``): features
     F (B, C, H·W), G = F·Fᵀ / (H·W). x (B, C, H, W) → (B, C, C).
 
+    vst's rule (``preferred_element_type``): float64 stays float64, every
+    other dtype accumulates and returns float32, so bf16 features are cast
+    to float32 before the product (exactly vst's f32 product of bf16 values).
     vst accumulates at HIGHEST precision; on CUDA that is a float32 ``bmm``
     with TF32 off (``vst_torch.set_f32_precision``)."""
     B, C, H, W = x.shape
-    f = x.reshape(B, C, H * W)
+    acc = torch.float64 if x.dtype == torch.float64 else torch.float32
+    f = x.reshape(B, C, H * W).to(acc)
     return torch.bmm(f, f.transpose(1, 2)) / (H * W)
 
 

@@ -99,9 +99,15 @@ class CaffeVGG(nn.Module):
                 cin = ch
 
     def forward(self, x: torch.Tensor, out_keys: Sequence[str]):
+        """The ``out_keys`` outputs, in that order. Stops after the deepest
+        of them: XLA drops the unused layers from vst's program, eager
+        PyTorch would run them (for OBST's r42, conv4_3 to conv5_1)."""
+        want = set(out_keys)
         out: Dict[str, torch.Tensor] = {}
         h = x
         for name, ch in CAFFE_CFG:
+            if want.issubset(out):
+                break
             if ch is None:
                 h = self.pool(h)
                 out[name] = h
@@ -112,9 +118,9 @@ class CaffeVGG(nn.Module):
 
 
 def load_features(module: nn.Module, state_dict: Dict[str, torch.Tensor]) -> nn.Module:
-    """Load the entries of a torchvision vgg16/vgg19 or OBST ``vgg_conv``
-    ``state_dict`` that ``module`` holds (a trunk keeps only the features up
-    to its last tap); every one of them must be there."""
+    """Load the entries of a torchvision (vgg16 / vgg19, inception_v3,
+    alexnet) or OBST ``vgg_conv`` ``state_dict`` that ``module`` holds (a
+    trunk keeps only the layers it runs); every one of them must be there."""
     keys = module.state_dict().keys()
     module.load_state_dict({k: v for k, v in state_dict.items() if k in keys}, strict=True)
     return module
@@ -146,23 +152,30 @@ def obst_postp(x: torch.Tensor) -> torch.Tensor:
 # the no-pretrained-weights fallback
 # ---------------------------------------------------------------------------
 
-def _vst_name(name: str) -> str:
-    """The conv's scope in vst's param tree: trunk ``features.{i}`` is
-    ``conv{i}``; CaffeVGG's ``conv{a}_{b}`` keeps its name."""
-    return "conv" + name.split(".")[1] if name.startswith("features.") else name
+def _vst_path(name: str) -> Tuple[str, ...]:
+    """The conv's scopes in vst's param tree: a trunk's (or AlexNet's)
+    ``features.{i}`` is ``conv{i}``; any other module keeps its dotted path
+    (CaffeVGG's ``conv{a}_{b}``, Inception's ``Mixed_5b.branch1x1.conv``)."""
+    if name.startswith("features."):
+        return ("conv" + name.split(".")[1],)
+    return tuple(name.split("."))
 
 
 def _convs_in_vst_order(module: nn.Module) -> Iterable[nn.Conv2d]:
     """The convs in the order ``jax.tree_util.tree_flatten_with_path`` visits
-    vst's tree: keys sorted as strings (conv0, conv10, conv12, …, conv2, …)."""
-    named = [(_vst_name(n), m) for n, m in module.named_modules() if isinstance(m, nn.Conv2d)]
+    vst's nested tree: depth first with each level's keys sorted as strings,
+    which is the order of the sorted path tuples (conv0, conv10, conv12, …,
+    conv2, …; ``('Mixed_5b', 'branch1x1', …)`` before
+    ``('Mixed_5b', 'branch3x3dbl_1', …)``)."""
+    named = [(_vst_path(n), m) for n, m in module.named_modules() if isinstance(m, nn.Conv2d)]
     return [m for _, m in sorted(named, key=lambda item: item[0])]
 
 
 @torch.no_grad()
 def he_randomized_(module: nn.Module, seed: int = 0) -> nn.Module:
     """Re-draw every conv kernel He-normal (fan_in, gain √2) and zero the
-    biases, in place: vst's ``he_randomized_params`` (``vgg.py:208``).
+    biases, in place: vst's ``he_randomized_params`` (``vgg.py:208``); any
+    other parameter or buffer (a batch norm's) keeps its init, as there.
     torch's default init shrinks activations about 2× a layer, so by relu3_3
     a random VGG maps every image to near-identical features; He-scaled
     random features keep their variance at depth (the "style transfer with
@@ -178,5 +191,6 @@ def he_randomized_(module: nn.Module, seed: int = 0) -> nn.Module:
         std = np.sqrt(2.0 / (kh * kw * ci))
         w = (rng.randn(kh, kw, ci, co) * std).astype(np.float32)
         conv.weight.copy_(torch.from_numpy(w.transpose(3, 2, 0, 1).copy()))
-        conv.bias.zero_()
+        if conv.bias is not None:
+            conv.bias.zero_()
     return module
