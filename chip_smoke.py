@@ -91,7 +91,28 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
    against the CPU (4 images, float32, 1e-4 relative). The FC2 paths
    launch none of the kernels.
 
-Phases 5–15 each drive one path with the kernels' launch counts set to 0
+16. stargan: `vst_torch.cli eval-sintel --family stargan2` (vst's 256-pixel
+   configuration, the EMA nets, 3 styles) and `--family stargan` (conv_dim
+   64) with `--sintel-dir` on a Sintel-layout tree of vst's 8-frame
+   synthetic clip at 436×1024 written as PNGs (the loader crops it to
+   432×1024), RAFT f32 at 20 iterations through the kernel (without
+   `--sintel-dir` the command scores the clip with its exact flow and runs
+   no RAFT), each after its driver on a 7-frame 64×96 clip on the card
+   against the same on the CPU (TCL ≤ 1e-4 relative); each StarGAN v2 step
+   (d_latent, d_ref, g_latent, g_ref) and v1's D and G steps at 32² on the
+   card against the CPU (losses f32 ≤ 1e-4 relative, gradients f64 ≤ 1e-8
+   relative in L2 per parameter); `train-stargan2` at 256², batch 8, 4
+   domains, AdvCon, 10 iterations from the device cache over a 32-sample
+   synthetic styled corpus (`pack_styled_corpus`) in f32 and in bf16 (iteration median after 3
+   warm-up iterations, images/s, peak memory, every loss finite), one f32
+   iteration split by CUDA events into its D steps (R1), G steps and EMA,
+   and one under torch.profiler (busy share); `train-stargan` at 128²,
+   batch 16, 10 iterations (2 G steps) from a 128² corpus, the same numbers; `vst_torch.cli
+   eval-fc2 --family stargan2` (latent and reference) and `--family
+   stargan` at 256² on 4 synthetic batches of 4, --num-outs 3, the seconds
+   split as in phase 15. The training and FC2 paths launch no kernel.
+
+Phases 5–16 each drive one path with the kernels' launch counts set to 0
 just before it and read just after; a kernel of the path that was never
 launched fails the run. Then the card's name and power limit (nvidia-smi),
 the kernels line and the result line. Float32 with TF32 off. Weights and
@@ -115,16 +136,20 @@ import torch.nn.functional as F
 from vst_torch import bench, set_f32_precision
 from vst_torch.cli.__main__ import (RAFT_VARIANTS, source_frames, stylize_frames,
                                     video_stylizer)
+from vst_torch.cli.__main__ import synthetic_clip as cli_synthetic_clip
 from vst_torch.cli.__main__ import main as cli_main
 from vst_torch.cli.__main__ import parser as cli_parser
 from vst_torch.core.roofline import PEAK_BYTES_PER_S, PEAK_F32_OPS_PER_S
 from vst_torch.core.timing import chain_ms, cold_pool, graph_ms, host_ms, windows_ms
 from vst_torch.data.device_cache import DeviceFC2Cache
+from vst_torch.data.fc2 import pack_styled_corpus
 from vst_torch.data.loader import pack_fc2_npy
 from vst_torch.data.styles import load_style_images
 from vst_torch.eval.drivers import (evaluate_sintel_faststyle, evaluate_sintel_ruder,
-                                    faststyle_stylize_fn)
+                                    evaluate_sintel_stargan, evaluate_sintel_stargan2,
+                                    faststyle_stylize_fn, stargan2_styles)
 from vst_torch.eval.sintel import SintelVideo, make_tcl_program
+from vst_torch.eval.video import write_png
 from vst_torch.flow.corr import build_pyramid, lookup_pyramid
 from vst_torch.flow.raft import RAFT, coords_grid
 from vst_torch.kernels import _nvcc
@@ -140,12 +165,17 @@ from vst_torch.eval import drivers as drivers_module
 from vst_torch.eval import fc2 as fc2_module
 from vst_torch.models.faststyle import FastStyleNet
 from vst_torch.models.gatys import OBST, PYR_SINTEL
+from vst_torch.models.stargan import Generator as StarGANGenerator
+from vst_torch.models.stargan2 import Generator as StarGAN2Generator
+from vst_torch.models.stargan2 import MappingNetwork
 from vst_torch.nn.conv import cudnn_enabled
 from vst_torch.ops.image import InputPadder
 from vst_torch.perceptual.vgg import Vgg16Features, he_randomized_
 from vst_torch.probes import bisect_im2col, bisect_kernel_cost, bisect_mxu
 from vst_torch.train.faststyle import FastStyleTrainer
-from vst_torch.train.parity import grad_errors, training_step
+from vst_torch.train.parity import (grad_errors, max_loss_rel_err, stargan2_steps,
+                                    stargan_steps, training_step)
+from vst_torch.train.stargan2 import StarGAN2Config, StarGAN2Trainer
 from vst_torch.train.registry import FASTSTYLE_METHODS, method_net, select_method
 
 RADIUS = 4
@@ -188,6 +218,12 @@ METRIC_RTOL = 1e-4  # InceptionV3 activations and LPIPS, card against CPU, f32
 OBST_FRAMES = 6  # TCL-LT needs a frame past the offset of 5
 FC2_HW = (256, 256)
 FC2_SEED = 14
+GAN_LOSS_RTOL = 1e-4  # card against CPU, f32
+GAN_GRAD_RTOL = 1e-8  # card against CPU, f64, L2 per parameter
+SG2_HW, SG2_BATCH = (256, 256), 8  # the README's StarGAN v2 configuration, 4 domains
+SG1_HW, SG1_BATCH = (128, 128), 16
+GAN_ITERS = 10
+GAN_CORPUS = 32
 
 
 def emit(obj) -> None:
@@ -1131,6 +1167,40 @@ class Stopwatch:
         return timed
 
 
+def fc2_run(argv, name):
+    """One eval-fc2 command (``argv`` without --out-dir): its means (every one
+    finite), the files it wrote and its wall seconds split into the metric
+    nets, FID's host math and the rest (stylizing)."""
+    watch = Stopwatch()
+    saved = (InceptionV3.__call__, LPIPS.__call__, fc2_module.fid_from_activations,
+             drivers_module.fid_from_activations)
+    InceptionV3.__call__ = watch.wrap("inception_s", saved[0])
+    LPIPS.__call__ = watch.wrap("lpips_s", saved[1])
+    fc2_module.fid_from_activations = watch.wrap("fid_host_s", saved[2])
+    drivers_module.fid_from_activations = watch.wrap("fid_host_s", saved[3])
+    try:
+        with tempfile.TemporaryDirectory() as out_dir:
+            t0 = time.perf_counter()
+            res = cli_main([*argv, "--out-dir", out_dir])
+            wall = time.perf_counter() - t0
+            written = sorted(os.path.relpath(os.path.join(d, f), out_dir)
+                             for d, _, fs in os.walk(out_dir) for f in fs)
+    finally:
+        (InceptionV3.__call__, LPIPS.__call__, fc2_module.fid_from_activations,
+         drivers_module.fid_from_activations) = saved
+    # OBST returns one table a λ, the others one table
+    tables = ({f"lambda{lam}_": t for lam, t in res.items()} if name == "obst"
+              else {"": res})
+    means = {prefix + k: v for prefix, table in tables.items()
+             for metric in table.values() for k, v in metric.items()
+             if k.endswith("mean") and isinstance(v, float)}
+    if not means or not all(math.isfinite(v) for v in means.values()):
+        raise AssertionError(f"eval-fc2 {name}: means missing or not finite: {means}")
+    metric_s = sum(watch.seconds.values())
+    return {"means": means, "written": written, "wall_s": wall, **watch.seconds,
+            "stylize_and_rest_s": wall - metric_s}
+
+
 def phase_fc2_metrics(dev):
     """eval-fc2 at 256² on 4 synthetic batches of 4 for OBST, Johnson and
     Ruder, the seconds split by part; the metric nets on the card against
@@ -1157,39 +1227,168 @@ def phase_fc2_metrics(dev):
             "ruder": ["--family", "faststyle", "--method", "ruder"]}
     reset_counts()
     for name, flags in runs.items():
-        watch = Stopwatch()
-        saved = (InceptionV3.__call__, LPIPS.__call__, fc2_module.fid_from_activations,
-                 drivers_module.fid_from_activations)
-        InceptionV3.__call__ = watch.wrap("inception_s", saved[0])
-        LPIPS.__call__ = watch.wrap("lpips_s", saved[1])
-        fc2_module.fid_from_activations = watch.wrap("fid_host_s", saved[2])
-        drivers_module.fid_from_activations = watch.wrap("fid_host_s", saved[3])
-        try:
-            with tempfile.TemporaryDirectory() as out_dir:
-                t0 = time.perf_counter()
-                res = cli_main([*argv, *flags, "--out-dir", out_dir])
-                wall = time.perf_counter() - t0
-                written = sorted(os.path.relpath(os.path.join(d, f), out_dir)
-                                 for d, _, fs in os.walk(out_dir) for f in fs)
-        finally:
-            (InceptionV3.__call__, LPIPS.__call__, fc2_module.fid_from_activations,
-             drivers_module.fid_from_activations) = saved
-        # OBST returns one table a λ, the others one table
-        tables = ({f"lambda{lam}_": t for lam, t in res.items()} if name == "obst"
-                  else {"": res})
-        means = {prefix + k: v for prefix, table in tables.items()
-                 for metric in table.values() for k, v in metric.items()
-                 if k.endswith("mean") and isinstance(v, float)}
-        if not means or not all(math.isfinite(v) for v in means.values()):
-            raise AssertionError(f"eval-fc2 {name}: means missing or not finite: {means}")
-        metric_s = sum(watch.seconds.values())
-        record["runs"][name] = {"means": means, "written": written, "wall_s": wall,
-                                **watch.seconds, "stylize_and_rest_s": wall - metric_s}
+        record["runs"][name] = fc2_run([*argv, *flags], name)
     launches = kernel_launches()
     if any(launches.values()):
         raise AssertionError(f"the FC2 paths launched a kernel: {launches}")
     record["kernel_launches"] = launches
     emit(record)
+
+
+def gan_card_vs_cpu(steps):
+    """Each step of ``steps`` (``vst_torch.train.parity``) on the card against
+    the CPU: losses in f32, gradients in f64 (in f32 rounding decides a
+    part of each gradient)."""
+    out = {}
+    f32 = (steps("cpu", torch.float32), steps("cuda", torch.float32))
+    f64 = (steps("cpu", torch.float64), steps("cuda", torch.float64))
+    for name in f32[0]:
+        loss_rel = max_loss_rel_err(f32[1][name][0], f32[0][name][0])
+        grad_rel, _ = grad_errors(f64[1][name][1], f64[0][name][1])
+        if not (loss_rel <= GAN_LOSS_RTOL and grad_rel <= GAN_GRAD_RTOL):
+            raise AssertionError(f"{steps.__name__} {name} card vs CPU: loss {loss_rel} > "
+                                 f"{GAN_LOSS_RTOL} or f64 gradient {grad_rel} > {GAN_GRAD_RTOL}")
+        out[name] = {"losses": f32[0][name][0], "loss_max_rel_err": loss_rel,
+                     "f64_grad_max_rel_err": grad_rel,
+                     "f32_grad_max_rel_err": grad_errors(f32[1][name][1], f32[0][name][1])[0]}
+    return out
+
+
+def gan_eval_card_vs_cpu(dev, family):
+    """A StarGAN Sintel driver on a 7-frame 64×96 clip with RAFT (4 iterations)
+    on the card (through the kernel) against the CPU (the plain lookup),
+    seeded weights: every TCL value within TCL_RTOL relative and positive."""
+    small = SintelVideo("small", synthetic_clip(7, (64, 96), seed=2))
+    vals = []
+    for device in (dev, torch.device("cpu")):
+        raft = seeded_raft(4, device, seed=2)
+        torch.manual_seed(3)
+        if family == "stargan2":
+            g, f = StarGAN2Generator(256, 64, 512).to(device), MappingNetwork(16, 64, 4).to(device)
+            res = evaluate_sintel_stargan2(g, f, [small], lambda a, b: raft(a, b), num_domains=4,
+                                           styles=stargan2_styles(4, 16), dt_iters=1,
+                                           device=device)
+        else:
+            g = StarGANGenerator(64, 4, 6).to(device)
+            res = evaluate_sintel_stargan(g, [small], lambda a, b: raft(a, b), c_dim=4,
+                                          dt_iters=1, device=device)
+        vals.append([res[k][f"{k}_small_s{d}"] for k in TCL_KEYS for d in (1, 2, 3)])
+    rel = max(abs(a - b) / max(abs(b), 1e-12) for a, b in zip(*vals))
+    if rel > TCL_RTOL or not all(v > 0 for v in vals[1]):
+        raise AssertionError(f"eval-sintel {family}: small clip card vs CPU {rel} > {TCL_RTOL} "
+                             f"or not positive: {vals}")
+    return rel
+
+
+def stargan2_split(dev, corpus):
+    """One f32 iteration at the full configuration split by CUDA events into
+    its D steps (R1), G steps and EMA (after 2 warm-up iterations), then one
+    more under torch.profiler (profile_call: kernel time, busy share)."""
+    from vst_torch.data.device_cache import DeviceStyledCache
+    from vst_torch.train.stargan2 import gan_batch
+
+    trainer = StarGAN2Trainer(StarGAN2Config(img_size=SG2_HW[0], lambda_tcl=100.0), seed=0,
+                              device=dev)
+    cache = DeviceStyledCache(corpus, num_dom=4, seed=1, device=dev)
+    batch = gan_batch(cache.sample(SG2_BATCH), dev)
+    for _ in range(2):
+        trainer.train_iteration(batch)
+    z, _ = trainer.draw_latents(SG2_BATCH)
+    args = (batch["x_real"], batch["y_org"], batch["y_trg"], z, batch["x_ref"])
+    parts = {"d_steps_r1": lambda: [trainer.d_step(k, *args) for k in ("latent", "ref")],
+             "g_steps": lambda: [trainer.g_step(k, k == "latent", {**batch, "z": z})
+                                 for k in ("latent", "ref")],
+             "ema": trainer.ema_step}
+    events = {}
+    torch.cuda.synchronize()
+    for name, fn in parts.items():
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        events[name] = (start, end)
+    torch.cuda.synchronize()
+    split = {f"{name}_ms": a.elapsed_time(b) for name, (a, b) in events.items()}
+    profile = profile_call(lambda: trainer.train_iteration(batch))
+    return {**split, "profile": {**profile, "host_idle_share": 1.0 - profile["busy_share"]}}
+
+
+def phase_stargan(dev):
+    record = {"phase": "stargan", "seconds": {}, "eval_sintel": {}, "train": {}, "fc2": {}}
+    t0 = time.perf_counter()
+    record["card_vs_cpu"] = {"stargan2_32x32": gan_card_vs_cpu(stargan2_steps),
+                             "stargan_32x32": gan_card_vs_cpu(stargan_steps)}
+    record["seconds"]["card_vs_cpu"] = time.perf_counter() - t0
+
+    launches = {}
+    sintel = tempfile.TemporaryDirectory()
+    clip = os.path.join(sintel.name, "training", "final", "synthetic_1")
+    os.makedirs(clip)
+    for i, frame in enumerate(cli_synthetic_clip(SINTEL_HW, 8, 0)[0]):
+        write_png(os.path.join(clip, f"frame_{i + 1:04d}.png"),
+                  np.round(frame * 255).astype(np.uint8))
+    for family in ("stargan2", "stargan"):
+        t0 = time.perf_counter()
+        rel = gan_eval_card_vs_cpu(dev, family)
+        reset_counts()
+        with tempfile.TemporaryDirectory() as out_dir:
+            t1 = time.perf_counter()
+            res = cli_main(["eval-sintel", "--family", family, "--sintel-dir", sintel.name,
+                            "--out-dir", out_dir])
+            seconds = time.perf_counter() - t1
+        launches[family] = corr_lookup.launches
+        require_launches(launches, (family,), "eval-sintel --family")
+        record["eval_sintel"][family] = {
+            **finite_positive({k: res[k][f"{k}_mean"] for k in res}, f"eval-sintel {family}"),
+            "evaluation_s": seconds, "corr_lookup_launches": launches[family],
+            "small_card_vs_cpu_max_rel_err": rel}
+        record["seconds"][f"eval_sintel_{family}"] = time.perf_counter() - t0
+    sintel.cleanup()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        corpora = {hw: os.path.join(tmp, f"styled_{hw[0]}") for hw in (SG2_HW, SG1_HW)}
+        for hw, corpus in corpora.items():
+            pack_styled_corpus(corpus, GAN_CORPUS, hw, num_dom=4)
+        record["seconds"]["corpus_write"] = time.perf_counter() - t0
+        common = ["--device-cache", str(GAN_CORPUS), "--steps", str(GAN_ITERS), "--log-every",
+                  "5", "--ckpt-every", str(10 * GAN_ITERS)]
+        sg2 = ["train-stargan2", "--hw", *map(str, SG2_HW), "--batch-size", str(SG2_BATCH),
+               "--lambda-tcl", "100", "--sample-every", str(GAN_ITERS), "--data-dir",
+               corpora[SG2_HW]]
+        runs = {"stargan2_f32": sg2, "stargan2_bf16": [*sg2, "--compute-dtype", "bfloat16"],
+                "stargan": ["train-stargan", "--hw", *map(str, SG1_HW), "--batch-size",
+                            str(SG1_BATCH), "--data-dir", corpora[SG1_HW]]}
+        reset_counts()
+        for name, argv in runs.items():
+            t0 = time.perf_counter()
+            res = cli_main([*argv, *common, "--out-dir", os.path.join(tmp, name)])
+            if res["n_nonfinite"]:
+                raise AssertionError(f"{name}: a loss is not finite: {res['last_losses']}")
+            record["train"][name] = {k: v for k, v in res.items() if k != "losses"}
+            record["seconds"][f"train_{name}"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        record["train"]["stargan2_f32_split"] = stargan2_split(dev, corpora[SG2_HW])
+        record["seconds"]["split"] = time.perf_counter() - t0
+    train_launches = kernel_launches()
+
+    argv = ["eval-fc2", "--hw", *map(str, FC2_HW), "--batch-size", "4", "--seed", str(FC2_SEED),
+            "--num-outs", "3"]
+    fc2_runs = {"stargan2_latent": ["--family", "stargan2", "--mode", "latent"],
+                "stargan2_reference": ["--family", "stargan2", "--mode", "reference"],
+                "stargan": ["--family", "stargan"]}
+    reset_counts()
+    for name, flags in fc2_runs.items():
+        t0 = time.perf_counter()
+        record["fc2"][name] = fc2_run([*argv, *flags], name)
+        record["seconds"][f"fc2_{name}"] = time.perf_counter() - t0
+    fc2_launches = kernel_launches()
+    if any(train_launches.values()) or any(fc2_launches.values()):
+        raise AssertionError(f"the training / FC2 paths launched a kernel: {train_launches}, "
+                             f"{fc2_launches}")
+    record["kernel_launches"] = {"train": train_launches, "fc2": fc2_launches}
+    emit(record)
+    return launches
 
 
 def kernel_entries(name, source, replaces, measured):
@@ -1236,6 +1435,7 @@ def main() -> int:
     phase_train_faststyle(dev)
     obst_launches = phase_obst(dev)
     phase_fc2_metrics(dev)
+    gan_launches = phase_stargan(dev)
 
     smi = subprocess.run(["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], check=True, capture_output=True, text=True)
@@ -1250,7 +1450,8 @@ def main() -> int:
          "host_ms": timing["host_ms"],
          "launches_by_path": {"main_path": launches, "eval_sintel_ruder": ruder_launches,
                               **{f"raft_{k}": v for k, v in bf16_launches.items()},
-                              "eval_obst": obst_launches}},
+                              "eval_obst": obst_launches,
+                              **{f"eval_sintel_{k}": v for k, v in gan_launches.items()}}},
         *kernel_entries("pad_conv3x3", conv_source, "scripts/bisect_im2col.py:20",
                         {f"full_{dt}": per_conv(m) for (_, dt), m in trunk.items()}),
         *kernel_entries("pad_conv3x3", conv_source, "scripts/bisect_kernel_cost.py:15",

@@ -23,6 +23,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from torch_train_parity import torch_threads  # noqa: F401 (autouse)
 from vst.models.faststyle import FastStyleNet as JFastStyleNet
 from vst_torch import bench
 from vst_torch.cli.__main__ import main as cli_main

@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_train_parity import torch_threads  # noqa: F401 (autouse)
 from vst_torch.cli.__main__ import main as cli_main
 from vst_torch.cli.__main__ import _make_raft, source_frames, parser, synthetic_clip
 from vst_torch.eval.video import write_png
@@ -68,9 +69,17 @@ def test_eval_sintel_loads_a_state_dict(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("family", ["stargan", "stargan2", "cyclegan"])
-def test_eval_sintel_gan_families_are_not_ported(family):
-    with pytest.raises(SystemExit, match="item 6"):
-        cli_main(["eval-sintel", *SMALL, "--family", family])
+def test_eval_sintel_gan_families_are_not_ported(family, tmp_path):
+    """Of the GAN families only CycleGAN is still to port and stops with a
+    pointer (ROADMAP.md §1 item 6); the StarGAN families run."""
+    argv = ["eval-sintel", *SMALL, "--family", family, "--raft-iters", "2", "--dt-iters", "1",
+            "--out-dir", str(tmp_path)]
+    if family == "cyclegan":
+        with pytest.raises(SystemExit, match="item 6"):
+            cli_main(argv)
+    else:
+        res = cli_main(argv)
+        assert res["TCL-ST"]["TCL-ST_mean"] > 0 and "TCL-LT_synthetic_1_s3" in res["TCL-LT"]
 
 
 @pytest.mark.parametrize("command", ["eval-sintel", "stylize-video"])

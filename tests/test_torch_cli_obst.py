@@ -3,7 +3,8 @@ small sizes write vst's file layout: ``<out>/<λ>/{TCL-ST,TCL-LT,DT,RAFT-MS}.jso
 and a ``summary.json`` that a second run merges into, with vst's keys;
 ``eval-fc2 --family obst`` writes ``<out>/<λ>/{FID,TCL}.json``, the
 faststyle family ``{FID,LPIPS,TCL}_00000_latent.json`` (Ruder:
-``{FID,TCL}.json``). ``--family stargan|stargan2`` stops with a message.
+``{FID,TCL}.json``), and so do the StarGAN families (``--mode reference``:
+``tests/test_torch_cli_stargan.py``).
 Sizes: 64×64 for eval-obst (RAFT's 4-level correlation pyramid needs 1/8 of
 the frame to halve 3 times), 76×76 for eval-fc2 (InceptionV3 needs 75×75),
 one pyramid level of 20 closure calls. ``--seed 6`` gives 4 synthetic
@@ -83,6 +84,14 @@ def test_eval_fc2_faststyle(tmp_path, method, files):
 
 
 @pytest.mark.parametrize("family", ["stargan", "stargan2"])
-def test_eval_fc2_gan_families_stop_with_a_message(family, capsys):
-    with pytest.raises(SystemExit, match="ROADMAP.md §1 item 6"):
-        main(["eval-fc2", "--device", "cpu", "--family", family])
+def test_eval_fc2_gan_families_stop_with_a_message(family, capsys, tmp_path):
+    """The StarGAN families, once stopped with a pointer to ROADMAP.md §1
+    item 6, now run: vst's three JSONs, a positive TCL, and LPIPS skipped
+    with a note for v1, whose G ignores the latent rng."""
+    res = main(["eval-fc2", *FC2, "--family", family, "--num-outs", "2",
+                "--out-dir", str(tmp_path)])
+    assert sorted(p.name for p in tmp_path.iterdir()) == sorted(f"{m}_00000_latent.json"
+                                                                for m in ("FID", "LPIPS", "TCL"))
+    assert res["TCL"]["TCL_latent/mean"] > 0 and res["FID"]["FID_latent/backbone"] == "random-he"
+    assert ("LPIPS_latent/note" in res["LPIPS"]) == (family == "stargan")
+    assert f"TCL: {res['TCL']['TCL_latent/mean']:.4f}" in capsys.readouterr().out

@@ -3,7 +3,9 @@ RAFT through it against RAFT with the plain lookup; pad_conv3x3 in its four
 modes and gemm_rate against their plain versions; one training step of each
 feed-forward method on the card against the CPU, and the device cache
 against the same cache on the CPU; one OBST level (float64) and the FC2
-metric nets (float32) on the card against the CPU. Marked ``cuda``; they skip where there
+metric nets (float32) on the card against the CPU; each step of a StarGAN v2
+iteration and StarGAN v1's D and G steps on the card against the CPU, and
+the styled device cache on the card against the CPU. Marked ``cuda``; they skip where there
 is no CUDA device. On a machine with an H100 (``--noconftest``: the suite's
 conftest needs jax, which these tests do not):
 
@@ -14,7 +16,8 @@ import numpy as np
 import pytest
 import torch
 
-from vst_torch.data.device_cache import DeviceFC2Cache
+from vst_torch.data.device_cache import DeviceFC2Cache, DeviceStyledCache
+from vst_torch.data.fc2 import pack_styled_corpus
 from vst_torch.flow.corr import build_pyramid, lookup_pyramid
 from vst_torch.flow.raft import RAFT, coords_grid
 from vst_torch.kernels.corr_lookup import corr_lookup
@@ -25,7 +28,8 @@ from vst_torch.metrics.lpips import LPIPS
 from vst_torch.models.gatys import OBST
 from vst_torch.probes.bisect_im2col import trunk_inputs
 from vst_torch.probes.bisect_mxu import SHAPES as GEMM_SHAPES
-from vst_torch.train.parity import grad_errors, training_step
+from vst_torch.train.parity import (grad_errors, max_loss_rel_err, stargan2_steps,
+                                    stargan_steps, training_step)
 
 pytestmark = pytest.mark.cuda
 
@@ -305,3 +309,32 @@ def test_inception_and_lpips_on_the_card_match_the_cpu(dev):
     want = LPIPS(seed=0, device="cpu")(x[:2], x[2:])
     got = LPIPS(seed=0, device=dev)(x[:2].to(dev), x[2:].to(dev))
     assert abs(got - want) <= 1e-4 * want
+
+
+GAN_LOSS_RTOL = 1e-4  # float32, card against CPU
+GAN_GRAD_RTOL = 1e-8  # float64, card against CPU, L2 per parameter
+
+
+@pytest.mark.parametrize("steps", [stargan2_steps, stargan_steps], ids=["stargan2", "stargan"])
+def test_gan_steps_on_the_card_match_the_cpu(dev, steps):
+    """Every step's losses in float32 and gradients in float64 (in float32 a
+    gradient is only as exact as rounding; the R1 / WGAN-GP double backward
+    runs on cuDNN with TF32 off)."""
+    for dtype, check in ((torch.float32, "loss"), (torch.float64, "grad")):
+        want, got = steps("cpu", dtype), steps(dev, dtype)
+        for name, (w_loss, w_grad) in want.items():
+            g_loss, g_grad = got[name]
+            if check == "loss":
+                assert max_loss_rel_err(g_loss, w_loss) <= GAN_LOSS_RTOL, name
+            else:
+                assert grad_errors(g_grad, w_grad)[0] <= GAN_GRAD_RTOL, name
+
+
+def test_styled_cache_on_the_card_is_the_cpus(dev, tmp_path):
+    pack_styled_corpus(str(tmp_path), 5, hw=(32, 48), num_dom=3, seed=2)
+    caches = [DeviceStyledCache(str(tmp_path), num_dom=3, seed=4, device=d) for d in ("cpu", dev)]
+    for sampler, args in (("sample", (4,)), ("sample_multidomain", (4,)),
+                          ("sample_cyclegan", (3, 2))):
+        want, got = (getattr(c, sampler)(*args) for c in caches)
+        for k, v in want.items():
+            torch.testing.assert_close(got[k].cpu(), v, atol=0, rtol=0)

@@ -60,6 +60,14 @@ def test_obst_and_metric_modules_are_checked():
         "metrics/lpips", "data/fc2", "eval/fc2", "eval/drivers", "cli/__main__")} <= names
 
 
+def test_gan_modules_are_checked():
+    names = {str(p.relative_to(ROOT)) for p in SOURCES}
+    assert {f"vst_torch/{m}.py" for m in (
+        "train/policy", "models/stargan2", "models/stargan", "train/stargan2", "train/stargan",
+        "nn/norm", "convert", "data/device_cache", "data/fc2", "eval/drivers",
+        "eval/video")} <= names
+
+
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_vst_imports(path):
     bad = [(line, mod) for line, mod in _imported_roots(path) if mod in FORBIDDEN]

@@ -12,6 +12,7 @@ import pytest
 import torch
 import jax.numpy as jnp
 
+from torch_train_parity import torch_threads  # noqa: F401 (autouse)
 from vst.data.synthetic import AffineMotionGenerator, _texture
 from vst.eval.drivers import evaluate_sintel_faststyle as jevaluate_sintel_faststyle
 from vst.eval.drivers import faststyle_stylize_fn as jfaststyle_stylize_fn

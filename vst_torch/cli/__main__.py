@@ -4,12 +4,18 @@ family's training and evaluation, and the benchmarks.
     python -m vst_torch.cli train-faststyle [--method johnson|dumoulin|huang|reconet|ruder]
                                             [--hw 256 256] [--batch-size 16] [--steps N]
                                             [--data-dir DIR [--device-cache N]]
-    python -m vst_torch.cli eval-sintel [--method johnson|dumoulin|huang|reconet|ruder]
+    python -m vst_torch.cli train-stargan2 [--hw 256 256] [--batch-size 8] [--steps N]
+                                           [--lambda-tcl 100] [--compute-dtype bfloat16]
+                                           [--data-dir ROOT [--device-cache N]]
+    python -m vst_torch.cli train-stargan [--hw 128 128] [--batch-size 16] [--n-critic 5]
+    python -m vst_torch.cli eval-sintel [--family faststyle|stargan|stargan2]
+                                        [--method johnson|dumoulin|huang|reconet|ruder]
                                         [--hw 436 1024] [--sintel-dir DIR] [--raft-bf16]
     python -m vst_torch.cli stylize-video [--source DIR|VIDEO] [--batch-size 8] [--bf16]
     python -m vst_torch.cli eval-obst [--hw 436 1024] [--iters-pyr 50 40 30]
                                       [--lambda-tcl 0 2000] [--obst-bf16] [--sintel-dir DIR]
-    python -m vst_torch.cli eval-fc2 --family obst|faststyle [--method johnson|…|ruder]
+    python -m vst_torch.cli eval-fc2 [--family stargan2|stargan|obst|faststyle]
+                                     [--mode latent|reference] [--method johnson|…|ruder]
                                      [--hw 256 256] [--data-dir DIR]
     python -m vst_torch.cli bench
     python -m vst_torch.cli bench-raft [--hw 436 1024] [--iters 5] [--out-dir DIR]
@@ -34,10 +40,35 @@ read), and ends with one JSON line: the device step (CUDA events around each
 step, the median after 3 warm-up steps; the host clock on the CPU),
 images/s, the host's time to make a batch, peak memory, first and last loss.
 
+``train-stargan2``: StarGAN v2 (``vst_torch.train.stargan2``; ``--lambda-tcl
+100`` is AdvCon, ``--compute-dtype bfloat16`` vst's bf16 policy) and
+``train-stargan``: StarGAN v1 (WGAN-GP, a G step every ``--n-critic``
+iterations; D's depth capped at log2(H) − 1). Batches come from the device
+cache (``--data-dir`` holding ``styled-files``, ``styled-files3`` and
+``DATAFiles``, with ``--device-cache N``: N names uploaded once, batches
+drawn on the card), the corpus read on the host (v2, ``--data-dir`` without
+the cache: its 97 % train split) or synthetic affine-motion batches made on
+the host. Both print vst's log line every ``--log-every`` iterations, write
+``losses.txt`` and torch checkpoints every ``--ckpt-every`` iterations and at
+the end: v2 ``<out-dir>/{step:06d}_nets.ckpt`` (a dict of the state_dicts
+``generator``, ``mapping_network``, ``style_encoder``, ``discriminator``)
+and ``{step:06d}_nets_ema.ckpt`` (the EMA nets, the first three), as the
+reference's CheckpointIO names them; v1 ``<out-dir>/{step}-G.ckpt`` and
+``{step}-D.ckpt`` (one state_dict each, the reference's names). v2 writes a
+debug grid ``sample_{step:06d}.png`` every ``--sample-every`` iterations. Each
+ends with one JSON line: the iteration time (CUDA events around each
+iteration, the median after 3 warm-up iterations; the host clock on the
+CPU), images/s, peak memory, the first and last losses.
+
 ``eval-sintel``: TCL-ST / TCL-LT / DT of the FastStyleNet family on Sintel
 (``--sintel-dir``) or, without it, on an 8-frame synthetic affine-motion
 clip scored with its exact flow (random RAFT weights would fail the
-fb-consistency check everywhere). Johnson, Dumoulin, Huang and ReCoNet share
+fb-consistency check everywhere). ``--family stargan2`` scores StarGAN v2's
+EMA nets (``--ckpt-dir``: a ``_nets_ema.ckpt`` file) at vst's 256-pixel
+configuration, styles = domains 1 … D−1 with seeded latents, the clip cropped
+to multiples of 16; ``--family stargan`` StarGAN v1's G (``--ckpt-dir``: a
+``-G.ckpt`` file) at conv_dim 64. Both feed RAFT [−1, 1] frames, as vst.
+Johnson, Dumoulin, Huang and ReCoNet share
 the 3-input net and the generic harness; Ruder runs its streaming protocol
 with a 7-input net and a 3-input frame-0 bootstrap (``--pre-style-ckpt``, a
 seeded net without it). ``--raft-bf16`` runs RAFT's encoders in bfloat16
@@ -65,7 +96,10 @@ batches of ``--batch-size``. ``--family obst`` runs OBST's protocol (TCL,
 FID) once per ``--obst-lambdas`` into ``<out-dir>/<λ>/``; ``--family
 faststyle`` scores ``--method``'s net (``--ckpt-dir``, a state_dict file, or
 a seeded net) with TCL / FID / LPIPS through the harness, or, for Ruder, its
-two-frame protocol. InceptionV3 and AlexNet are vst's seeded He-randomized
+two-frame protocol. ``--family stargan2`` scores StarGAN v2's EMA nets with a
+latent (``--mode latent``) or a reference image's style (``--mode
+reference``), ``--family stargan`` v1's G (deterministic: LPIPS skipped);
+``--ckpt-dir`` as for eval-sintel. InceptionV3 and AlexNet are vst's seeded He-randomized
 nets (no weights ship with the repository), labelled "random-he" in the
 JSONs; InceptionV3 needs images of 75×75 or more.
 
@@ -79,9 +113,8 @@ for ``f32`` and ``bf16_full_pad64``; and each variant's flow against
 ``f32``'s. It prints one JSON line and writes it to
 ``<out-dir>/raft_timing.json``. Every variant gets the same weights.
 
-Not ported yet: ``eval-sintel --family stargan|stargan2|cyclegan``,
-``eval-fc2 --family stargan|stargan2`` and the other subcommands
-(``ROADMAP.md`` §1).
+Not ported yet: ``eval-sintel --family cyclegan``, ``train-cyclegan`` and the
+other subcommands (``ROADMAP.md`` §1).
 """
 
 from __future__ import annotations
@@ -98,23 +131,28 @@ import torch
 from vst_torch import bench, set_f32_precision
 from vst_torch.core.metrics import MetricsLogger
 from vst_torch.core.timing import windows_ms
-from vst_torch.data.device_cache import DeviceFC2Cache
+from vst_torch.data.device_cache import DeviceFC2Cache, DeviceStyledCache
 from vst_torch.data.fc2 import DatasetFC2, FC2Loader, synthetic_fc2_batches, train_eval_split
 from vst_torch.data.loader import NpyDirDataset
 from vst_torch.data.styles import load_style_images
 from vst_torch.data.synthetic import MARGIN, AffineMotionGenerator, _texture, synthetic_batch
 from vst_torch.eval.drivers import (evaluate_fc2_obst, evaluate_fc2_ruder,
                                     evaluate_sintel_faststyle, evaluate_sintel_obst,
-                                    evaluate_sintel_ruder)
+                                    evaluate_sintel_ruder, evaluate_sintel_stargan,
+                                    evaluate_sintel_stargan2)
 from vst_torch.eval.fc2 import calculate_metrics
 from vst_torch.eval.sintel import SintelVideo, load_sintel_videos
-from vst_torch.eval.video import _writer, write_png
+from vst_torch.eval.video import _writer, translate_and_reconstruct, write_png
 from vst_torch.flow.raft import RAFT
 from vst_torch.metrics.fid import InceptionV3
 from vst_torch.models.gatys import OBST
+from vst_torch.models.stargan import Generator as StarGANGenerator
 from vst_torch.ops.image import InputPadder
 from vst_torch.train.faststyle import FastStyleTrainer, batch_to_tensors
 from vst_torch.train.registry import FASTSTYLE_METHODS, bootstrap_net, method_net, select_method
+from vst_torch.train.stargan import StarGANConfig, StarGANTrainer
+from vst_torch.train.stargan2 import (StarGAN2Config, StarGAN2Trainer, gan_batch,
+                                      nets_from_state_dicts)
 
 BF16 = torch.bfloat16
 # variant name → (encoder dtype, update dtype, InputPadder multiple)
@@ -237,27 +275,62 @@ def _eval_videos(args):
     return [SintelVideo("synthetic_1", frames)], flow_fn
 
 
+def stargan2_eval_nets(args, cfg: StarGAN2Config, device: torch.device):
+    """StarGAN v2's EMA nets for evaluation: from the ``--ckpt-dir`` file (a
+    ``_nets_ema.ckpt`` dict of state_dicts) or a seeded trainer's (its EMA
+    copies of the initial nets, as vst's ``state.ema``)."""
+    if args.ckpt_dir:
+        return nets_from_state_dicts(cfg, torch.load(args.ckpt_dir, map_location="cpu"), device)
+    return {k: net.eval() for k, net in StarGAN2Trainer(cfg, args.seed, device).ema.items()}
+
+
+def stargan_eval_generator(args, cfg: StarGANConfig, device: torch.device):
+    """StarGAN v1's G: the ``--ckpt-dir`` file (a ``-G.ckpt`` state_dict) or a
+    seeded trainer's (``StarGANTrainer`` builds G first from the seed)."""
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(args.seed)
+        g = StarGANGenerator(cfg.conv_dim, cfg.c_dim, cfg.repeat_num)
+    if args.ckpt_dir:
+        g.load_state_dict(load_state(args.ckpt_dir))
+    return g.to(device).eval()
+
+
 def cmd_eval_sintel(args) -> Dict:
-    if args.family != "faststyle":
-        raise SystemExit(f"eval-sintel --family {args.family}: the GAN families are not "
-                         "ported yet (ROADMAP.md §1 item 6)")
+    if args.family == "cyclegan":
+        raise SystemExit("eval-sintel --family cyclegan: the CycleGAN family is not ported "
+                         "yet (ROADMAP.md §1 item 6)")
     device = _device(args)
     set_f32_precision()
+    if args.family == "stargan2":
+        # the generator needs multiples of 16; the reference crops Sintel to
+        # 432 rows for the same reason (sintel_eval.py:82-88)
+        args.hw = [args.hw[0] // 16 * 16, args.hw[1] // 16 * 16]
     videos, flow_fn = _eval_videos(args)
     raft_apply = _make_raft(args, device)
+    kw = dict(out_path=args.out_dir, dt_iters=args.dt_iters, flow_fn=flow_fn, device=device)
+    if args.family == "stargan2":  # vst's 256-pixel configuration, the EMA nets
+        nets = stargan2_eval_nets(args, StarGAN2Config(img_size=256,
+                                                       num_domains=args.num_domains), device)
+        results = evaluate_sintel_stargan2(nets["generator"], nets["mapping"], videos,
+                                           raft_apply, num_domains=args.num_domains, **kw)
+    elif args.family == "stargan":
+        g = stargan_eval_generator(args, StarGANConfig(c_dim=args.num_domains), device)
+        results = evaluate_sintel_stargan(g, videos, raft_apply, c_dim=args.num_domains, **kw)
+    else:
+        results = _eval_sintel_faststyle(args, videos, raft_apply, kw, device)
+    print({k: v[f"{k}_mean"] for k, v in results.items()})
+    return results
+
+
+def _eval_sintel_faststyle(args, videos, raft_apply, kw, device):
     torch.manual_seed(args.seed)
     net = method_net(args.method, args.n_styles).to(device)
     state = load_state(args.ckpt_dir) if args.ckpt_dir else net.state_dict()
-    kw = dict(styles=list(range(max(args.n_styles, 3))), out_path=args.out_dir,
-              dt_iters=args.dt_iters, flow_fn=flow_fn, device=device)
+    kw = dict(kw, styles=list(range(max(args.n_styles, 3))))
     if args.method == "ruder":
         pre = _load_pre_style(args, device)
-        results = evaluate_sintel_ruder(net, state, pre, pre.state_dict(), videos,
-                                        raft_apply, **kw)
-    else:
-        results = evaluate_sintel_faststyle(net, state, videos, raft_apply, **kw)
-    print({k: v[f"{k}_mean"] for k, v in results.items()})
-    return results
+        return evaluate_sintel_ruder(net, state, pre, pre.state_dict(), videos, raft_apply, **kw)
+    return evaluate_sintel_faststyle(net, state, videos, raft_apply, **kw)
 
 
 def obst_pyramid(hw, iters_pyr) -> Tuple[Tuple[int, int], ...]:
@@ -373,17 +446,47 @@ def _fc2_obst(args, batches, num_dom: int, device: torch.device) -> Dict:
     return results
 
 
+def _fc2_stargan2_style_fn(args, num_dom: int, device: torch.device):
+    """StarGAN v2's style_fn for the harness: the EMA nets at ``--hw``, the
+    style from a latent drawn from the harness's generator (``latent``) or
+    from the reference image (``reference``, ``eval.py:128``)."""
+    cfg = StarGAN2Config(img_size=args.hw[0], num_domains=num_dom)
+    nets = stargan2_eval_nets(args, cfg, device)
+
+    def style_fn(x, y, mode, rng, x_ref):
+        if mode == "latent":
+            z = torch.randn(x.shape[0], cfg.latent_dim, generator=rng, device=x.device)
+            s = nets["mapping"](z, y)
+        else:
+            s = nets["style_enc"](x_ref, y)
+        return nets["generator"](x, s)
+
+    return style_fn
+
+
+def _fc2_stargan_style_fn(args, num_dom: int, device: torch.device):
+    """StarGAN v1's style_fn: G(x, one_hot(y)), deterministic in (x, y)."""
+    g = stargan_eval_generator(args, StarGANConfig(c_dim=num_dom, image_size=args.hw[0]),
+                               device)
+
+    def style_fn(x, y, mode, rng, x_ref):
+        return g(x, torch.nn.functional.one_hot(y, num_dom).to(x.dtype))
+
+    return style_fn
+
+
 def cmd_eval_fc2(args) -> Dict:
     """The FC2 metrics (the reference's ``--mode fc2`` drivers)."""
-    if args.family in ("stargan", "stargan2"):
-        raise SystemExit(f"eval-fc2 --family {args.family}: the GAN families are not ported "
-                         "yet (ROADMAP.md §1 item 6)")
     device = _device(args)
     set_f32_precision()
     num_dom = args.num_domains
     batches = _fc2_eval_batches(args, num_dom)
     if args.family == "obst":
         return _fc2_obst(args, batches, num_dom, device)
+    if args.family in ("stargan2", "stargan"):
+        make = _fc2_stargan2_style_fn if args.family == "stargan2" else _fc2_stargan_style_fn
+        return _fc2_harness(args, make(args, num_dom, device), batches, num_dom, device,
+                            deterministic=args.family == "stargan")
 
     args.n_styles = max(num_dom - 1, 1)
     torch.manual_seed(args.seed)
@@ -406,9 +509,15 @@ def cmd_eval_fc2(args) -> Dict:
         return out * 2.0 - 1.0
 
     # a per-style head ignores the rng: within-chunk LPIPS is degenerate
+    return _fc2_harness(args, style_fn, batches, num_dom, device, deterministic=True)
+
+
+def _fc2_harness(args, style_fn, batches, num_dom: int, device: torch.device,
+                 deterministic: bool) -> Dict:
+    """``calculate_metrics`` at the command's flags; prints each mean."""
     results = calculate_metrics(style_fn, batches, num_domains=num_dom, mode=args.mode,
                                 num_outs_per_domain=args.num_outs, out_dir=args.out_dir,
-                                rng_seed=args.seed, deterministic=True, device=device)
+                                rng_seed=args.seed, deterministic=deterministic, device=device)
     for name, d in results.items():
         key = f"{name}_{args.mode}/mean"
         if key in d:
@@ -540,6 +649,151 @@ def cmd_train_faststyle(args) -> Dict:
     return {**line, "losses": losses, "step_ms": step_ms, "batch_ms": batch_ms}
 
 
+def _gan_batches(args, device: torch.device, multidomain: bool):
+    """The GAN trainers' batches: (the source's name, an endless iterator of
+    FC2 batches: the device cache's tensors, or host numpy). The cache draws
+    v1's plain multi-domain batches (``sample_multidomain``, StarGAN/main.py:30)
+    or v2's pseudo-pairs (``sample``)."""
+    if args.data_dir and args.device_cache:
+        cache = DeviceStyledCache(args.data_dir, num_dom=args.num_domains,
+                                  limit=args.device_cache, seed=args.seed, device=device)
+        print(f"device cache: {cache.n} samples × {cache.num_dom} domains resident on "
+              f"{device_name(device)}", flush=True)
+        draw = cache.sample_multidomain if multidomain else cache.sample
+
+        def cached():
+            while True:
+                yield draw(args.batch_size)
+
+        return "device_cache", cached()
+    if args.data_dir and not multidomain:  # the corpus' 97 % train split (data_loader.py:295-317)
+        ds = DatasetFC2(*(os.path.join(args.data_dir, d)
+                          for d in ("DATAFiles", "styled-files", "styled-files3")),
+                        num_dom=args.num_domains, base_len=None)
+        tr, _ = train_eval_split(len(ds), split=0.97, seed=args.seed)
+        loader = FC2Loader(ds, tr, args.batch_size, seed=args.seed)
+
+        def corpus():
+            while True:
+                yield from loader.epoch()
+
+        return "corpus", corpus()
+    if args.data_dir:
+        raise SystemExit("train-stargan reads a corpus through --device-cache only")
+
+    def synthetic():
+        j = 0
+        while True:
+            yield from synthetic_fc2_batches(4, args.batch_size, hw=tuple(args.hw),
+                                             num_dom=args.num_domains, seed=args.seed + j)
+            j += 4
+
+    return "synthetic", synthetic()
+
+
+def _gan_loop(args, device: torch.device, source: str, batches, iteration: Callable,
+              checkpoint: Callable, every: Callable = lambda i, batch: None) -> Dict:
+    """The GAN trainers' loop: ``iteration(i, batch)`` → metrics per
+    iteration under ``_StepTimer``, vst's log line and ``losses.txt``,
+    ``checkpoint(step)`` every ``--ckpt-every`` and at the end, ``every(i,
+    batch)`` after each iteration. Returns the JSON line's dict with the
+    losses and times."""
+    os.makedirs(args.out_dir, exist_ok=True)
+    logger = MetricsLogger(os.path.join(args.out_dir, "losses.txt"))
+    timer = _StepTimer(device)
+    history, written = [], []
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    t_loop = time.perf_counter()
+    for i in range(args.steps):
+        batch = gan_batch(next(batches), device)
+        with timer:
+            metrics = iteration(i, batch)
+        history.append(metrics)
+        if (i + 1) % args.log_every == 0:
+            logger.log(i + 1, **{k: float(v) for k, v in metrics.items()})
+            print(f"[{i + 1}/{args.steps}] " + " ".join(
+                f"{k}: {float(v):.4f}" for k, v in metrics.items()), flush=True)
+        if (i + 1) % args.ckpt_every == 0 or i + 1 == args.steps:
+            written += checkpoint(i + 1)
+        every(i + 1, batch)
+    step_ms = timer.ms()
+    wall = time.perf_counter() - t_loop
+    losses = [{k: float(v) for k, v in m.items()} for m in history]
+    it_ms = float(np.median(step_ms[WARMUP_STEPS:] or step_ms))
+    return {"hw": list(args.hw), "batch": args.batch_size, "iterations": args.steps,
+            "source": source, "device": device_name(device), "iteration_ms_median": it_ms,
+            "images_per_s": args.batch_size * 1e3 / it_ms, "wall_s": wall,
+            "peak_mem_gib": (torch.cuda.max_memory_allocated(device) / 2 ** 30
+                             if device.type == "cuda" else None),
+            "first_losses": losses[0], "last_losses": losses[-1],
+            "n_nonfinite": int(sum(not np.isfinite(v) for m in losses for v in m.values())),
+            "checkpoints": written, "iteration_ms": step_ms, "losses": losses}
+
+
+def _report(line: Dict) -> Dict:
+    print(json.dumps({k: v for k, v in line.items() if k not in ("iteration_ms", "losses")}))
+    return line
+
+
+def cmd_train_stargan2(args) -> Dict:
+    device = _device(args)
+    set_f32_precision()
+    cfg = StarGAN2Config(img_size=args.hw[0], num_domains=args.num_domains,
+                         style_dim=args.style_dim, latent_dim=args.latent_dim,
+                         max_conv_dim=args.max_conv_dim, compute_dtype=args.compute_dtype,
+                         lambda_tcl=args.lambda_tcl)
+    trainer = StarGAN2Trainer(cfg, seed=args.seed, device=device)
+    source, batches = _gan_batches(args, device, multidomain=False)
+
+    def checkpoint(step):
+        paths = [os.path.join(args.out_dir, f"{step:06d}_nets{tag}.ckpt") for tag in ("", "_ema")]
+        for path, use_ema in zip(paths, (False, True)):
+            torch.save(trainer.state_dicts(use_ema), path)
+        return paths
+
+    def sample_grid(step, batch):
+        """The EMA nets' debug grid (core/utils.py:122-148)."""
+        if step % args.sample_every:
+            return
+        n = min(4, batch["x_real"].shape[0])
+        translate_and_reconstruct(trainer.generate_fn(), trainer.ema["style_enc"],
+                                  batch["x_real"][:n], batch["y_org"][:n],
+                                  batch["x_ref"][:n], batch["y_trg"][:n],
+                                  filename=os.path.join(args.out_dir, f"sample_{step:06d}.png"))
+
+    line = _gan_loop(args, device, source, batches, lambda i, b: trainer.train_iteration(b),
+                     checkpoint, sample_grid)
+    return _report({"family": "stargan2", "compute_dtype": args.compute_dtype or "float32",
+                    "lambda_tcl": args.lambda_tcl, **line})
+
+
+def cmd_train_stargan(args) -> Dict:
+    device = _device(args)
+    set_f32_precision()
+    H = args.hw[0]
+    cfg = StarGANConfig(c_dim=args.num_domains, image_size=H, conv_dim=args.conv_dim,
+                        repeat_num=args.repeat_num, n_critic=args.n_critic,
+                        d_repeat_num=min(args.repeat_num, int(np.log2(H)) - 1))
+    trainer = StarGANTrainer(cfg, seed=args.seed, device=device)
+    source, batches = _gan_batches(args, device, multidomain=True)
+
+    def iteration(i, b):
+        c_org, c_trg = (torch.nn.functional.one_hot(b[k], cfg.c_dim).float()
+                        for k in ("y_org", "y_trg"))
+        return trainer.train_iteration(i, b["x_real"], c_org, c_trg)
+
+    def checkpoint(step):
+        paths = [os.path.join(args.out_dir, f"{step}-{name}.ckpt") for name in ("G", "D")]
+        torch.save(trainer.G.state_dict(), paths[0])
+        torch.save(trainer.D.state_dict(), paths[1])
+        return paths
+
+    line = _gan_loop(args, device, source, batches, iteration, checkpoint)
+    return _report({"family": "stargan", "n_critic": cfg.n_critic,
+                    "g_steps": trainer.counts["G"], **line})
+
+
 def source_frames(args) -> np.ndarray:
     """(T, H, W, 3) float32 [0, 1] from ``--source`` or the synthetic clip.
     A frame directory and a video file are both read through cv2 (vst reads
@@ -668,6 +922,22 @@ def _add_common(p, hw=(64, 64)) -> None:
     p.add_argument("--out-dir", default="runs/latest")
 
 
+def _add_gan_common(p, hw, batch_size: int, ckpt_every: str) -> None:
+    """The GAN trainers' flags (vst's common ones, ``vst/cli/__main__.py:25-36``)."""
+    _add_common(p, hw=hw)
+    p.add_argument("--steps", type=int, default=100, help="iterations")
+    p.add_argument("--batch-size", type=int, default=batch_size)
+    p.add_argument("--log-every", type=int, default=10)
+    p.add_argument("--ckpt-every", type=int, default=1000, help=ckpt_every)
+    p.add_argument("--num-domains", type=int, default=4)
+    p.add_argument("--data-dir", default=None,
+                   help="corpus root (styled-files, styled-files3, DATAFiles); synthetic "
+                        "batches if omitted")
+    p.add_argument("--device-cache", type=int, default=0,
+                   help="upload N corpus names to the device once (uint8 images and masks, "
+                        "float16 flows) and draw every batch there")
+
+
 def parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="vst_torch", description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -699,6 +969,28 @@ def parser() -> argparse.ArgumentParser:
                         "state_dict file (fs_ruder.py:25-34); a seeded net without it")
     s.set_defaults(fn=cmd_train_faststyle)
 
+    ckpt_every = ("write the checkpoints every N iterations and at the end; torch files with "
+                  "the reference's key names (vst writes orbax directories, which need jax)")
+    s = sub.add_parser("train-stargan2", help="StarGAN v2 Adv / AdvCon training")
+    _add_gan_common(s, hw=(256, 256), batch_size=8, ckpt_every=ckpt_every)
+    s.add_argument("--style-dim", type=int, default=64)
+    s.add_argument("--latent-dim", type=int, default=16)
+    s.add_argument("--max-conv-dim", type=int, default=512)
+    s.add_argument("--lambda-tcl", type=float, default=0.0, help="100 = AdvCon")
+    s.add_argument("--sample-every", type=int, default=1000,
+                   help="debug sample grid interval (core/utils.py:122-148)")
+    s.add_argument("--compute-dtype", default=None, choices=[None, "bfloat16"],
+                   help="vst's bf16 policy (vst_torch.train.policy): casts on entry to each "
+                        "loss, float32 masters, norms and loss reductions")
+    s.set_defaults(fn=cmd_train_stargan2)
+
+    s = sub.add_parser("train-stargan", help="StarGAN v1 (WGAN-GP) training")
+    _add_gan_common(s, hw=(128, 128), batch_size=16, ckpt_every=ckpt_every)
+    s.add_argument("--conv-dim", type=int, default=64)
+    s.add_argument("--repeat-num", type=int, default=6)
+    s.add_argument("--n-critic", type=int, default=5)
+    s.set_defaults(fn=cmd_train_stargan)
+
     s = sub.add_parser("eval-sintel", help="TCL-ST / TCL-LT / DT video benchmark")
     _add_common(s)
     s.add_argument("--family", default="faststyle",
@@ -708,9 +1000,12 @@ def parser() -> argparse.ArgumentParser:
                    help="Ruder's frame-0 bootstrap, a FastStyleNet state_dict file "
                         "(fs_ruder.py:25-34); a seeded net when the file is absent")
     s.add_argument("--n-styles", type=int, default=3)
+    s.add_argument("--num-domains", type=int, default=4, help="the GAN families' domains")
     s.add_argument("--sintel-dir", default=None)
     s.add_argument("--ckpt-dir", default=None,
-                   help="the method's FastStyleNet state_dict file (reference key names)")
+                   help="a torch file with the reference's key names: the method's "
+                        "FastStyleNet state_dict; StarGAN v2's *_nets_ema.ckpt (a dict of "
+                        "state_dicts); StarGAN v1's *-G.ckpt")
     s.add_argument("--raft-iters", type=int, default=20)
     s.add_argument("--raft-ckpt", default=None, help="the reference's RAFT state_dict file")
     s.add_argument("--raft-bf16", action=argparse.BooleanOptionalAction, default=None,
@@ -776,7 +1071,9 @@ def parser() -> argparse.ArgumentParser:
                         "synthetic batches if omitted")
     s.add_argument("--split", type=float, default=0.97)
     s.add_argument("--ckpt-dir", default=None,
-                   help="the method's FastStyleNet state_dict file (reference key names)")
+                   help="a torch file with the reference's key names: the method's "
+                        "FastStyleNet state_dict; StarGAN v2's *_nets_ema.ckpt (a dict of "
+                        "state_dicts); StarGAN v1's *-G.ckpt")
     s.add_argument("--pre-style-ckpt", default="runs/johnson.pt",
                    help="Ruder's frame-0 bootstrap, a FastStyleNet state_dict file "
                         "(fs_ruder.py:25-34); a seeded net when the file is absent")

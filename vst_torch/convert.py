@@ -1,10 +1,13 @@
 """Weights from vst's flax param trees into the port's ``state_dict``s.
 
 The inverses of ``vst.models.faststyle.faststyle_params_from_torch``,
-``vst.flow.raft.raft_params_from_torch`` and ``vst.perceptual.vgg``'s
-``vgg16/19_params_from_torch`` and ``caffe_vgg_params_from_torch``. Each
-takes the param tree (without the outer ``"params"`` key) with numpy leaves;
-conv kernels go (kh, kw, I, O) → (O, I, kh, kw).
+``vst.flow.raft.raft_params_from_torch``, ``vst.perceptual.vgg``'s
+``vgg16/19_params_from_torch`` and ``caffe_vgg_params_from_torch``, and
+``vst.models.stargan2``'s four ``*_params_from_torch``; and StarGAN v1's
+bridge, which vst does not have. Each takes the param tree (without the
+outer ``"params"`` key) with numpy leaves; conv kernels go (kh, kw, I, O) →
+(O, I, kh, kw) (a transposed conv's (kh, kw, O, I) → (I, O, kh, kw), the
+same permutation), dense kernels (in, out) → (out, in).
 """
 
 from __future__ import annotations
@@ -26,9 +29,16 @@ def _j2t(a) -> torch.Tensor:
 
 
 def _put_conv(sd: Dict[str, torch.Tensor], key: str, conv: dict) -> None:
-    """conv: a flax ``Conv_0`` scope with kernel and bias."""
+    """conv: a flax ``Conv_0`` scope with kernel and, where it has one, bias."""
     sd[f"{key}.weight"] = _j2t(conv["kernel"])
-    sd[f"{key}.bias"] = _j2t(conv["bias"])
+    if "bias" in conv:
+        sd[f"{key}.bias"] = _j2t(conv["bias"])
+
+
+def _put_dense(sd: Dict[str, torch.Tensor], key: str, dense: dict) -> None:
+    """dense: a flax ``Dense_0`` scope, kernel (in, out) and bias."""
+    sd[f"{key}.weight"] = torch.from_numpy(np.array(np.asarray(dense["kernel"]).T, order="C"))
+    sd[f"{key}.bias"] = _j2t(dense["bias"])
 
 
 def _put_norm(sd: Dict[str, torch.Tensor], key: str, norm: dict) -> None:
@@ -121,4 +131,112 @@ def caffe_vgg_state_dict_from_jax(params: dict) -> Dict[str, torch.Tensor]:
     sd: Dict[str, torch.Tensor] = {}
     for name, node in params.items():
         _put_conv(sd, name, node["Conv_0"])
+    return sd
+
+
+def _put_resblk(sd: Dict[str, torch.Tensor], key: str, block: dict) -> None:
+    """A StarGAN v2 ``ResBlk`` or ``AdainResBlk`` scope: its convs, and its
+    affine norms or its AdaINs' ``fc``."""
+    for name, node in block.items():
+        if name.startswith("conv"):
+            _put_conv(sd, f"{key}.{name}", node["Conv_0"])
+        elif "fc" in node:
+            _put_dense(sd, f"{key}.{name}.fc", node["fc"]["Dense_0"])
+        else:
+            _put_norm(sd, f"{key}.{name}", node)
+
+
+def _put_trunk(sd: Dict[str, torch.Tensor], key: str, params: dict) -> int:
+    """The StyleEncoder's / Discriminator's trunk under ``key``
+    (``shared`` / ``main``): from_rgb at 0, ``block_i`` at 1 + i, conv_out
+    after the leaky ReLU that follows the blocks. Returns conv_out's index."""
+    _put_conv(sd, f"{key}.0", params["from_rgb"]["Conv_0"])
+    n = sum(1 for name in params if name.startswith("block_"))
+    for i in range(n):
+        _put_resblk(sd, f"{key}.{i + 1}", params[f"block_{i}"])
+    _put_conv(sd, f"{key}.{n + 2}", params["conv_out"]["Conv_0"])
+    return n + 2
+
+
+def stargan2_generator_state_dict_from_jax(params: dict) -> Dict[str, torch.Tensor]:
+    """vst StarGAN v2 ``Generator`` params → ``vst_torch.models.stargan2.
+    Generator`` state_dict (the inverse of ``generator_params_from_torch``)."""
+    sd: Dict[str, torch.Tensor] = {}
+    _put_conv(sd, "from_rgb", params["from_rgb"]["Conv_0"])
+    for name, node in params.items():
+        if name.startswith(("encode_", "decode_")):
+            part, i = name.split("_")
+            _put_resblk(sd, f"{part}.{i}", node)
+    _put_norm(sd, "to_rgb.0", params["to_rgb_norm"])
+    _put_conv(sd, "to_rgb.2", params["to_rgb"]["Conv_0"])
+    return sd
+
+
+def stargan2_mapping_state_dict_from_jax(params: dict) -> Dict[str, torch.Tensor]:
+    """vst ``MappingNetwork`` params → the port's state_dict: ``shared_i`` and
+    ``unshared_{d}_{i}`` are the linears at Sequential index 2i."""
+    sd: Dict[str, torch.Tensor] = {}
+    for name, node in params.items():
+        part, *idx = name.split("_")
+        *d, i = idx
+        _put_dense(sd, ".".join([part, *d, str(2 * int(i))]), node["Dense_0"])
+    return sd
+
+
+def stargan2_style_encoder_state_dict_from_jax(params: dict) -> Dict[str, torch.Tensor]:
+    """vst ``StyleEncoder`` params → the port's state_dict."""
+    sd: Dict[str, torch.Tensor] = {}
+    _put_trunk(sd, "shared", params)
+    for name, node in params.items():
+        if name.startswith("unshared_"):
+            _put_dense(sd, f"unshared.{name.split('_')[1]}", node["Dense_0"])
+    return sd
+
+
+def stargan2_discriminator_state_dict_from_jax(params: dict) -> Dict[str, torch.Tensor]:
+    """vst StarGAN v2 ``Discriminator`` params → the port's state_dict."""
+    sd: Dict[str, torch.Tensor] = {}
+    conv_out = _put_trunk(sd, "main", params)
+    _put_conv(sd, f"main.{conv_out + 2}", params["head"]["Conv_0"])
+    return sd
+
+
+def stargan_generator_state_dict_from_jax(params: dict) -> Dict[str, torch.Tensor]:
+    """vst StarGAN v1 ``Generator`` params (flax's names: ``_Conv_k``,
+    ``InstanceNorm_k``, ``ResidualBlock_k``, ``_ConvT_k`` in call order) →
+    the reference's ``main.{i}`` keys: conv, norm, ReLU; 2 × (conv, norm,
+    ReLU); the residual blocks; 2 × (transposed conv, norm, ReLU); conv, tanh."""
+    sd: Dict[str, torch.Tensor] = {}
+    n_res = sum(1 for name in params if name.startswith("ResidualBlock_"))
+    convs = iter(range(4))
+    norms = iter(range(5))
+    i = 0
+    for _ in range(3):
+        _put_conv(sd, f"main.{i}", params[f"_Conv_{next(convs)}"]["Conv_0"])
+        _put_norm(sd, f"main.{i + 1}", params[f"InstanceNorm_{next(norms)}"])
+        i += 3
+    for r in range(n_res):
+        block = params[f"ResidualBlock_{r}"]
+        for m in range(2):
+            _put_conv(sd, f"main.{i}.main.{3 * m}", block[f"_Conv_{m}"]["Conv_0"])
+            _put_norm(sd, f"main.{i}.main.{3 * m + 1}", block[f"InstanceNorm_{m}"])
+        i += 1
+    for t in range(2):
+        _put_conv(sd, f"main.{i}", params[f"_ConvT_{t}"]["ConvTranspose_0"])
+        _put_norm(sd, f"main.{i + 1}", params[f"InstanceNorm_{next(norms)}"])
+        i += 3
+    _put_conv(sd, f"main.{i}", params[f"_Conv_{next(convs)}"]["Conv_0"])
+    return sd
+
+
+def stargan_discriminator_state_dict_from_jax(params: dict) -> Dict[str, torch.Tensor]:
+    """vst StarGAN v1 ``Discriminator`` params (``_Conv_0`` … ``_Conv_{R-1}``
+    the stride-2 convs, then ``_Conv_R`` the source head and ``_Conv_{R+1}``
+    the domain head) → the reference's ``main.{2k}``, ``conv1``, ``conv2``."""
+    sd: Dict[str, torch.Tensor] = {}
+    n = sum(1 for name in params if name.startswith("_Conv_")) - 2
+    for k in range(n):
+        _put_conv(sd, f"main.{2 * k}", params[f"_Conv_{k}"]["Conv_0"])
+    _put_conv(sd, "conv1", params[f"_Conv_{n}"]["Conv_0"])
+    _put_conv(sd, "conv2", params[f"_Conv_{n + 1}"]["Conv_0"])
     return sd

@@ -12,8 +12,9 @@
 
 Images are read through PIL (vst reads them with imageio, which reads a JPEG
 through PIL too; the port does not require imageio). ``synthetic_fc2_batches``
-makes the same batch dict without files. ``FC2Fetcher`` and
-``CycleGANFC2Dataset`` belong to the GAN families (ROADMAP item 6).
+makes the same batch dict without files; ``FC2Fetcher`` adds the GAN
+trainers' latent draws. ``CycleGANFC2Dataset`` belongs to the CycleGAN family
+(ROADMAP item 6).
 """
 
 from __future__ import annotations
@@ -119,6 +120,32 @@ class FC2Loader:
             yield {k: np.stack([s[k] for s in samples]) for k in BATCH_KEYS}
 
 
+class FC2Fetcher:
+    """An endless fetcher over an ``FC2Loader``'s epochs that adds two latent
+    draws a batch, z_trg and z_trg2 (``data_loader.py:321-348``), from
+    ``np.random.RandomState(seed)``: vst's batches and latents bit for bit."""
+
+    def __init__(self, loader: FC2Loader, latent_dim: int = 16, seed: int = 0):
+        self.loader = loader
+        self.latent_dim = latent_dim
+        self._rng = np.random.RandomState(seed)
+        self._it = iter(loader.epoch())
+
+    def __iter__(self):
+        return self
+
+    def __next__(self) -> Dict[str, np.ndarray]:
+        try:
+            batch = next(self._it)
+        except StopIteration:
+            self._it = iter(self.loader.epoch())
+            batch = next(self._it)
+        n = batch["x_src"].shape[0]
+        return {**batch,
+                "z_trg": self._rng.randn(n, self.latent_dim).astype(np.float32),
+                "z_trg2": self._rng.randn(n, self.latent_dim).astype(np.float32)}
+
+
 def _stylize_np(img: np.ndarray, d: int) -> np.ndarray:
     """Domain d's colour remap: the 3×3 matrix applied d times, clipped."""
     if d == 0:
@@ -128,6 +155,35 @@ def _stylize_np(img: np.ndarray, d: int) -> np.ndarray:
     for _ in range(d):
         out = np.einsum("...c,cd->...d", out, m)
     return np.clip(out, 0, 1)
+
+
+def pack_styled_corpus(root: str, n_samples: int, hw=(64, 64), num_dom: int = 4,
+                       seed: int = 0, quality: int = 95) -> None:
+    """Write a synthetic corpus in the GAN trainers' layout under ``root``:
+    ``DATAFiles/<stem>.npy`` ((1, H, W, 9): frame 1 ⊕ frame 2 ⊕ mask ⊕
+    backward flow of an affine-motion pair), ``styled-files/style{d}/<stem>.jpg``
+    and ``styled-files3/style{d}/<stem>_2.jpg`` (the pair under domain d's
+    colour remap, domain 0 the content), JPEGs through PIL. What
+    ``DatasetFC2`` and ``DeviceStyledCache`` read; the repository has no
+    styled FC2 files."""
+    from PIL import Image
+
+    dirs = {d: [os.path.join(root, tree, f"style{d}") for tree in ("styled-files", "styled-files3")]
+            for d in range(num_dom)}
+    for path in [os.path.join(root, "DATAFiles")] + [p for ps in dirs.values() for p in ps]:
+        os.makedirs(path, exist_ok=True)
+    for i in range(n_samples):
+        b = synthetic_batch(1, hw=hw, n_frames=2, seed=seed + i)
+        f1, f2 = b["imgs"][0, 0], b["imgs"][0, 1]
+        stem = f"{i:07d}"
+        np.save(os.path.join(root, "DATAFiles", stem + ".npy"),
+                np.concatenate([f1, f2, b["masks"][0, 0], b["flows"][0, 0]], -1)[None]
+                .astype(np.float32))
+        for d, (sdir, tdir) in dirs.items():
+            for img, path in ((f1, os.path.join(sdir, stem + ".jpg")),
+                              (f2, os.path.join(tdir, stem + "_2.jpg"))):
+                u8 = np.round(_stylize_np(img, d) * 255).astype(np.uint8)
+                Image.fromarray(u8).save(path, quality=quality)
 
 
 def synthetic_fc2_batches(n_batches: int, batch_size: int, hw=(64, 64), num_dom: int = 4,

@@ -1,2 +1,2 @@
-"""The Sintel TCL-ST / TCL-LT / DT harness, the feed-forward family's
-drivers, and writing stylized frames."""
+"""The Sintel TCL-ST / TCL-LT / DT harness, the FC2 metric harness, the
+per-family drivers, and writing stylized frames and grids."""

@@ -4,7 +4,9 @@
   ReCoNet through the generic harness; ``:378-506``: Ruder's streaming
   protocol) and on FC2 (``:509-597``, Ruder);
 * OBST on Sintel (``:147-279``, streaming with a warm start from the warped
-  previous stylized frame) and on FC2 (``:282-375``).
+  previous stylized frame) and on FC2 (``:282-375``);
+* StarGAN v2 and v1 on Sintel (``:76-132``): frames in [−1, 1] into the
+  generator and into RAFT, domains 1 … D−1 as the styles.
 
 The feed-forward harness normalises frames with mean/std 0.5
 (``fast_style_transfer.py:407-410``): the net sees [−1, 1] frames, and so
@@ -154,6 +156,71 @@ def evaluate_sintel_ruder(model, state_dict, pre_model, pre_state_dict, videos,
 
     nd = (num_domains or len(styles) + 1) - 1
     return aggregate_results({"TCL-ST": tcl_st, "TCL-LT": tcl_lt, "DT": dt}, nd, out_path)
+
+
+def stargan2_stylize_fn(generator, mapping, styles, device="cuda"):
+    """stylize_fn for evaluate_videos, StarGAN v2: style d of ``styles``, a
+    list of (domain y, latent z (1, latent_dim)), is G(img, F(z, y))
+    (``utils/sintel_eval.py:207-208``); the harness passes d as a device
+    index, so the call reads no host value. vst draws one z per (video,
+    style) pass, not per frame as the reference; so does the port."""
+    device = torch.device(device)
+    ys = torch.tensor([int(y) for y, _ in styles], device=device)
+    zs = torch.cat([torch.as_tensor(np.asarray(z, np.float32)).reshape(1, -1)
+                    for _, z in styles]).to(device)
+
+    def fn(img, d):
+        d = d.reshape(1)
+        return generator(img, mapping(zs.index_select(0, d), ys.index_select(0, d)))
+
+    return fn
+
+
+def stargan2_styles(num_domains: int, latent_dim: int, seed: int = 777):
+    """The evaluation's styles: (y, z) for y = 1 … D−1, each z (1,
+    latent_dim) standard normal from a ``torch.Generator`` seeded with
+    ``seed`` (vst draws them from ``PRNGKey(777)``)."""
+    g = torch.Generator().manual_seed(seed)
+    return [(y, torch.randn(1, latent_dim, generator=g)) for y in range(1, num_domains)]
+
+
+@torch.no_grad()
+def evaluate_sintel_stargan2(generator, mapping, videos, raft_apply: Callable,
+                             num_domains: int = 4, styles=None, seed: int = 777,
+                             out_path=None, device="cuda", **kw):
+    """StarGAN v2 on Sintel (vst's ``evaluate_sintel_stargan2``): ``styles``
+    as :func:`stargan2_stylize_fn` takes them, or :func:`stargan2_styles`
+    from ``seed``; frames ×2−1; the nets (vst evaluates the EMA ones) must
+    lie on ``device``."""
+    if styles is None:
+        styles = stargan2_styles(num_domains, mapping.shared[0].in_features, seed)
+    return evaluate_videos(
+        videos, stargan2_stylize_fn(generator, mapping, styles, device), raft_apply,
+        styles=list(range(len(styles))), out_path=out_path,
+        frame_transform=lambda f: f * 2.0 - 1.0, num_domains=num_domains, device=device, **kw)
+
+
+def stargan_stylize_fn(generator, c_dim: int):
+    """stylize_fn for evaluate_videos, StarGAN v1: style y (a device id) is
+    G(img, one_hot(y, c_dim))."""
+
+    def fn(img, y):
+        c = torch.nn.functional.one_hot(y.reshape(1).long(), c_dim).to(img.dtype)
+        return generator(img, c)
+
+    return fn
+
+
+@torch.no_grad()
+def evaluate_sintel_stargan(generator, videos, raft_apply: Callable, c_dim: int = 4,
+                            out_path=None, device="cuda", **kw):
+    """StarGAN v1 on Sintel (``solver.py:639-721``, vst's
+    ``evaluate_sintel_stargan``): domains 1 … c_dim−1 as styles, frames
+    ×2−1; ``generator`` must lie on ``device``."""
+    return evaluate_videos(
+        videos, stargan_stylize_fn(generator, c_dim), raft_apply,
+        styles=list(range(1, c_dim)), out_path=out_path,
+        frame_transform=lambda f: f * 2.0 - 1.0, num_domains=c_dim, device=device, **kw)
 
 
 def fc2_tasks(num_domains: int):

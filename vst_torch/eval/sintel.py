@@ -26,6 +26,7 @@ import torch
 from vst_torch import set_f32_precision
 from vst_torch.core.metrics import aggregate_means, save_json
 from vst_torch.core.timing import chain_ms
+from vst_torch.data.fc2 import _read_image
 from vst_torch.ops.flowtools import fbc_mask
 from vst_torch.ops.image import InputPadder
 from vst_torch.ops.sample import warp
@@ -44,9 +45,9 @@ class SintelVideo:
 
 def load_sintel_videos(sintel_dir: str, crop_h: int = 432) -> List[SintelVideo]:
     """training/final + test/final videos, frames sorted and cropped to
-    ``crop_h`` rows (``sintel_eval.py:156-167``, SingleSintelVideo)."""
-    import imageio.v2 as imageio
-
+    ``crop_h`` rows (``sintel_eval.py:156-167``, SingleSintelVideo). Frames
+    are read through PIL (vst reads them with imageio, which the port does not
+    require; for a PNG both give the same pixels)."""
     videos = []
     for split in ("training", "test"):
         base = os.path.join(sintel_dir, split, "final")
@@ -54,7 +55,7 @@ def load_sintel_videos(sintel_dir: str, crop_h: int = 432) -> List[SintelVideo]:
             continue
         for vid in sorted(os.listdir(base)):
             vdir = os.path.join(base, vid)
-            frames = [imageio.imread(os.path.join(vdir, fid)).astype(np.float32)[:crop_h] / 255.0
+            frames = [_read_image(os.path.join(vdir, fid)).astype(np.float32)[:crop_h] / 255.0
                       for fid in sorted(os.listdir(vdir))]
             videos.append(SintelVideo(vid, np.stack(frames)))
     return videos

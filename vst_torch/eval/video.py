@@ -1,13 +1,15 @@
-"""Writing stylized frames: PNGs and a video, port of ``vst/eval/video.py:20-30``.
+"""Writing stylized frames and StarGAN v2's debug grids, port of
+``vst/eval/video.py:20-30, 56-93``.
 
 ``write_png`` encodes an 8-bit RGB PNG with the standard library (``zlib``
 and ``struct``), so frames are written wherever Python runs. ``_writer``
 opens an mp4 through imageio and its ffmpeg backend, falling back to a GIF
 when there is no such backend, as vst's; it needs imageio, which the caller
-imports through it.
+imports through it. ``translate_and_reconstruct`` is ``train-stargan2``'s
+sample grid (``StarGANv2Adv/core/utils.py:63-90``), written with
+``write_png``.
 
-The rest of vst's module (``make_videos``, the StarGAN-v2 grids and latent
-videos) is not ported yet.
+Not ported yet: ``make_videos`` and ``latent_interpolation_video``.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ import struct
 import zlib
 
 import numpy as np
+import torch
 
 
 def write_png(path: str, image: np.ndarray) -> None:
@@ -48,3 +51,31 @@ def _writer(path: str, fps: int):
     except (ValueError, ImportError):
         gif = os.path.splitext(path)[0] + ".gif"
         return gif, imageio.get_writer(gif, duration=1000.0 / fps)
+
+
+def denormalize(x: np.ndarray) -> np.ndarray:
+    """[−1, 1] → [0, 1], clipped (``core/utils.py:28-31``)."""
+    return np.clip((x + 1.0) / 2.0, 0.0, 1.0)
+
+
+def image_grid(rows) -> np.ndarray:
+    """Rows of equally sized (H, W, 3) images → one (rows·H, cols·W, 3) array."""
+    return np.concatenate([np.concatenate(list(r), axis=1) for r in rows], axis=0)
+
+
+@torch.no_grad()
+def translate_and_reconstruct(generate, style_encode, x_src: torch.Tensor, y_src,
+                              x_ref: torch.Tensor, y_ref, filename=None) -> np.ndarray:
+    """``core/utils.py:63-90``: fake = G(x_src, E(x_ref, y_ref)), rec =
+    G(fake, E(x_src, y_src)); one row each of src, ref, fake and rec, the
+    batch side by side, in [0, 1]. Images are NCHW tensors in [−1, 1]. Writes
+    the grid as an 8-bit PNG (× 255, truncated, as vst) to ``filename``
+    when given."""
+    x_fake = generate(x_src, style_encode(x_ref, y_ref))
+    x_rec = generate(x_fake, style_encode(x_src, y_src))
+    grid = image_grid([[denormalize(img) for img in b.float().permute(0, 2, 3, 1).cpu().numpy()]
+                       for b in (x_src, x_ref, x_fake, x_rec)])
+    if filename:
+        os.makedirs(os.path.dirname(os.path.abspath(filename)), exist_ok=True)
+        write_png(filename, (grid * 255).astype(np.uint8))
+    return grid

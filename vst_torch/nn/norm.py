@@ -1,6 +1,6 @@
-"""Instance norms (NCHW), port of ``vst/nn/norm.py``.
-
-``AdaIN`` belongs to the GAN family and is not ported yet.
+"""Instance norms (NCHW), port of ``vst/nn/norm.py``: the one-pass
+``instance_norm``, the affine ``InstanceNorm``, the multi-style
+``ConditionalInstanceNorm`` and StarGAN v2's ``AdaIN``.
 """
 
 from __future__ import annotations
@@ -62,3 +62,21 @@ class ConditionalInstanceNorm(nn.Module):
         sid = torch.as_tensor(style_id, device=table.device).long().reshape(1)
         gb = table.index_select(0, sid.clamp(0, table.shape[0] - 1))[0]
         return gb[:c, None, None] * self.bn(x) + gb[c:, None, None]
+
+
+class AdaIN(nn.Module):
+    """Adaptive instance norm, vst's ``AdaIN`` (``vst/nn/norm.py:92-111``;
+    StarGAN v2's ``model.py:67-77``): an instance norm without parameters,
+    then per sample (1 + γ)·x̂ + β, (γ, β) = ``fc(s)`` split in two. ``fc``
+    has torch's default weight init, which is vst's
+    ``dense_kernel_torch_default``, and a zero bias, which is flax's."""
+
+    def __init__(self, style_dim: int, num_features: int, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.fc = nn.Linear(style_dim, 2 * num_features)
+        nn.init.zeros_(self.fc.bias)
+
+    def forward(self, x: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+        gamma, beta = self.fc(s)[:, :, None, None].chunk(2, dim=1)
+        return (1.0 + gamma) * instance_norm(x, self.eps) + beta

@@ -1,7 +1,9 @@
 """One training step's loss and gradients on a device, and the comparison of
 two such steps: how the card's step is held against the CPU's
 (``chip_smoke.py``, ``tests/test_torch_cuda.py``) and the port's against
-vst's (``tests/torch_train_parity.py``).
+vst's (``tests/torch_train_parity.py``). The feed-forward family's step is
+:func:`training_step`; the StarGAN trainers' are :func:`stargan2_steps` and
+:func:`stargan_steps`.
 
 Gradients are compared per parameter in relative L2. A gradient that is 0 in
 exact arithmetic (a conv bias in front of an instance norm, which subtracts
@@ -18,10 +20,13 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from vst_torch.data.fc2 import synthetic_fc2_batches
 from vst_torch.data.styles import load_style_images
 from vst_torch.data.synthetic import synthetic_batch
 from vst_torch.train.faststyle import FastStyleTrainer, batch_to_tensors
 from vst_torch.train.registry import select_method
+from vst_torch.train.stargan import StarGANConfig, StarGANTrainer
+from vst_torch.train.stargan2 import EMA_NETS, StarGAN2Config, StarGAN2Trainer, gan_batch
 
 ZERO_GRAD = 1e-6  # of the whole gradient's norm
 
@@ -42,6 +47,80 @@ def training_step(method: str, device, dtype: torch.dtype, coin: Optional[bool] 
     loss.backward()
     return (loss.item(), {k: v.item() for k, v in aux.items()},
             {n: p.grad.double().cpu() for n, p in trainer.model.named_parameters()})
+
+
+# the StarGAN checks' configurations: narrow, so that float64 on a CPU is quick
+STARGAN2_SMALL = dict(img_size=32, style_dim=8, latent_dim=4, num_domains=3, max_conv_dim=32,
+                      lambda_tcl=100.0)
+STARGAN_SMALL = dict(c_dim=3, image_size=32, conv_dim=8, repeat_num=2, d_repeat_num=3)
+
+
+def _gan_inputs(device, dtype, hw, num_dom, seed):
+    b = gan_batch(synthetic_fc2_batches(1, 2, hw=hw, num_dom=num_dom, seed=seed)[0], device)
+    return {k: v.to(dtype) if v.is_floating_point() else v for k, v in b.items()}
+
+
+def _grads(nets, names):
+    return {f"{k}.{n}": p.grad.double().cpu() for k in names
+            for n, p in nets[k].named_parameters()}
+
+
+def stargan2_steps(device, dtype: torch.dtype, seed: int = 0
+                   ) -> Dict[str, Tuple[Dict[str, float], Dict[str, torch.Tensor]]]:
+    """Each of a StarGAN v2 iteration's four steps (d_latent, d_ref, g_latent,
+    g_ref; AdvCon) from the same seeded weights on ``device`` in ``dtype``, at
+    ``STARGAN2_SMALL``: (the step's losses, the gradients of the nets it
+    updates as float64 on the CPU, keyed ``net.param``)."""
+    trainer = StarGAN2Trainer(StarGAN2Config(**STARGAN2_SMALL), seed=seed, device=device)
+    for net in trainer.nets.values():
+        net.to(dtype)
+    b = _gan_inputs(device, dtype, (32, 32), STARGAN2_SMALL["num_domains"], seed + 1)
+    z = torch.randn(2, STARGAN2_SMALL["latent_dim"],
+                    generator=torch.Generator().manual_seed(seed + 2)).to(device, dtype)
+    out = {}
+    for which in ("d", "g"):
+        for kind in ("latent", "ref"):
+            names = ("disc",) if which == "d" else EMA_NETS if kind == "latent" else ("generator",)
+            for k, net in trainer.nets.items():
+                net.zero_grad(set_to_none=True)
+                net.requires_grad_(which == "d" or k in names)
+            if which == "d":
+                loss, metrics = trainer.d_loss(kind, b["x_real"], b["y_org"], b["y_trg"], z,
+                                               b["x_ref"])
+            else:
+                loss, metrics = trainer.g_loss(kind, {**b, "z": z})
+            loss.backward()
+            out[f"{which}_{kind}"] = ({k: v.item() for k, v in metrics.items()},
+                                      _grads(trainer.nets, names))
+    return out
+
+
+def stargan_steps(device, dtype: torch.dtype, seed: int = 0
+                  ) -> Dict[str, Tuple[Dict[str, float], Dict[str, torch.Tensor]]]:
+    """StarGAN v1's D step (with a seeded α) and G step from the same seeded
+    weights on ``device`` in ``dtype``, at ``STARGAN_SMALL``: (losses, the
+    gradients of the net the step updates, float64 on the CPU)."""
+    trainer = StarGANTrainer(StarGANConfig(**STARGAN_SMALL), seed=seed, device=device)
+    trainer.G.to(dtype)
+    trainer.D.to(dtype)
+    b = _gan_inputs(device, dtype, (32, 32), STARGAN_SMALL["c_dim"], seed + 1)
+    c_org, c_trg = (torch.nn.functional.one_hot(b[k], STARGAN_SMALL["c_dim"]).to(dtype)
+                    for k in ("y_org", "y_trg"))
+    alpha = torch.rand(2, 1, 1, 1, generator=torch.Generator().manual_seed(seed + 2),
+                       dtype=torch.float64).to(device, dtype)
+    loss, d_metrics = trainer.d_loss(b["x_real"], c_org, c_trg, alpha)
+    loss.backward()
+    out = {"d": ({k: v.item() for k, v in d_metrics.items()}, _grads({"D": trainer.D}, ("D",)))}
+    trainer.D.requires_grad_(False)
+    loss, g_metrics = trainer.g_loss(b["x_real"], c_org, c_trg)
+    loss.backward()
+    out["g"] = ({k: v.item() for k, v in g_metrics.items()}, _grads({"G": trainer.G}, ("G",)))
+    return out
+
+
+def max_loss_rel_err(got: Dict[str, float], want: Dict[str, float]) -> float:
+    """The largest relative difference of two steps' losses (0 where both are 0)."""
+    return max(abs(got[k] - w) / abs(w) if w else abs(got[k]) for k, w in want.items())
 
 
 def grad_errors(got: Dict[str, torch.Tensor], want: Dict[str, torch.Tensor]
