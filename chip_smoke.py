@@ -111,8 +111,27 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
    eval-fc2 --family stargan2` (latent and reference) and `--family
    stargan` at 256² on 4 synthetic batches of 4, --num-outs 3, the seconds
    split as in phase 15. The training and FC2 paths launch no kernel.
+17. cyclegan: each variant's E step and MoGAN's M step at 32² (stub flow) on
+   the card against the CPU (losses f32 ≤ 1e-4 relative, parameters and
+   gradients f64 ≤ 1e-8 relative in L2 per parameter), MoGAN's and
+   ConGAN's E steps and MoGAN's M step with RAFT (4 iterations) at 64²,
+   through the kernel on the card against the plain lookup on the CPU
+   (losses ≤ 1e-4); `train-cyclegan` for each variant at 256², batch 4,
+   ngf = ndf = 64, RAFT 20 iterations, 10 iterations from the device cache
+   over a 32-sample synthetic styled corpus, `--sid 1`, in f32 and, for
+   cyclegan and mogan, bf16 (E / M step medians after 3 warm-up iterations,
+   images/s, peak memory, every loss finite; `corr_lookup` launched exactly
+   20 × the RAFT calls: MoGAN 1000 (1200 in bf16, whose E step adds the
+   loss's 2 flows of the cast frames), ConGAN 800, the others 0); one E
+   step of MoGAN f32, MoGAN bf16 and cyclegan bf16 split by CUDA events
+   into the motion flows, the G step (its RAFT calls apart), the pools and
+   the D step, and one under torch.profiler (busy share, launches);
+   `eval-sintel --family cyclegan` on the f32 cyclegan,
+   mogan and congan checkpoints with `--sintel-dir` (phase 16's tree: RAFT
+   at 432×1024, 420 launches), after the driver at 64×96 on the card
+   against the CPU (TCL ≤ 1e-4 relative).
 
-Phases 5–16 each drive one path with the kernels' launch counts set to 0
+Phases 5–17 each drive one path with the kernels' launch counts set to 0
 just before it and read just after; a kernel of the path that was never
 launched fails the run. Then the card's name and power limit (nvidia-smi),
 the kernels line and the result line. Float32 with TF32 off. Weights and
@@ -128,6 +147,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from functools import partial
 
 import numpy as np
 import torch
@@ -145,7 +165,8 @@ from vst_torch.data.device_cache import DeviceFC2Cache
 from vst_torch.data.fc2 import pack_styled_corpus
 from vst_torch.data.loader import pack_fc2_npy
 from vst_torch.data.styles import load_style_images
-from vst_torch.eval.drivers import (evaluate_sintel_faststyle, evaluate_sintel_ruder,
+from vst_torch.eval.drivers import (evaluate_sintel_cyclegan, evaluate_sintel_faststyle,
+                                    evaluate_sintel_ruder,
                                     evaluate_sintel_stargan, evaluate_sintel_stargan2,
                                     faststyle_stylize_fn, stargan2_styles)
 from vst_torch.eval.sintel import SintelVideo, make_tcl_program
@@ -163,6 +184,7 @@ from vst_torch.metrics.fid import InceptionV3
 from vst_torch.metrics.lpips import LPIPS
 from vst_torch.eval import drivers as drivers_module
 from vst_torch.eval import fc2 as fc2_module
+from vst_torch.models.cyclegan import ResnetGenerator
 from vst_torch.models.faststyle import FastStyleNet
 from vst_torch.models.gatys import OBST, PYR_SINTEL
 from vst_torch.models.stargan import Generator as StarGANGenerator
@@ -173,8 +195,9 @@ from vst_torch.ops.image import InputPadder
 from vst_torch.perceptual.vgg import Vgg16Features, he_randomized_
 from vst_torch.probes import bisect_im2col, bisect_kernel_cost, bisect_mxu
 from vst_torch.train.faststyle import FastStyleTrainer
-from vst_torch.train.parity import (grad_errors, max_loss_rel_err, stargan2_steps,
-                                    stargan_steps, training_step)
+from vst_torch.train.cyclegan import CycleGANConfig, CycleGANTrainer, cyclegan_batch
+from vst_torch.train.parity import (cyclegan_steps, grad_errors, max_loss_rel_err, param_errors,
+                                    stargan2_steps, stargan_steps, training_step)
 from vst_torch.train.stargan2 import StarGAN2Config, StarGAN2Trainer
 from vst_torch.train.registry import FASTSTYLE_METHODS, method_net, select_method
 
@@ -224,6 +247,10 @@ SG2_HW, SG2_BATCH = (256, 256), 8  # the README's StarGAN v2 configuration, 4 do
 SG1_HW, SG1_BATCH = (128, 128), 16
 GAN_ITERS = 10
 GAN_CORPUS = 32
+CG_HW, CG_BATCH = (256, 256), 4  # the repo's CycleGAN runs (scripts/train_queue.sh:36-49)
+CG_VARIANTS = ("cyclegan", "cyclegan_con", "mogan", "congan")
+# RAFT calls an E step, an M step (a bf16 MoGAN E step makes 2 more)
+CG_RAFT_CALLS = {"cyclegan": (0, 0), "cyclegan_con": (0, 0), "mogan": (6, 4), "congan": (4, 0)}
 
 
 def emit(obj) -> None:
@@ -372,11 +399,13 @@ def phase_build():
 
 
 # (name, B, H, W, C, radius, levels, coords): the Sintel tcl2 shape, a ragged
-# one, the CPU tests' shape, RAFT small's radius, 1 and 2 levels, and flows
-# that put every window outside its map ("outside", all zeros)
+# one, the CPU tests' shape, the CycleGAN trainers' (4×3×256²: Q = 4096,
+# level 0 32²), RAFT small's radius, 1 and 2 levels, and flows that put every
+# window outside its map ("outside", all zeros)
 LOOKUP_SHAPES = (("sintel_tcl2", 4, 54, 128, 256, 4, 4, "flow"),
                  ("ragged_55", 4, 55, 128, 256, 4, 4, "flow"),
                  ("cpu_test", 1, 8, 16, 32, 4, 4, "flow"),
+                 ("train_256", 4, 32, 32, 256, 4, 4, "flow"),
                  ("radius_3", 4, 54, 128, 256, 3, 4, "flow"),
                  ("levels_1", 2, 55, 128, 64, 4, 1, "flow"),
                  ("levels_2", 2, 55, 128, 64, 3, 2, "flow"),
@@ -1149,29 +1178,43 @@ def phase_obst(dev):
     return launches
 
 
-class Stopwatch:
-    """Host seconds spent in wrapped callables, by name (the wrapped metric
-    nets return host values, so their device work is inside)."""
+class Spans:
+    """Spans around wrapped callables, by name, on two clocks: the host's
+    seconds, summed (``seconds``; a callable that returns host values has
+    its device work inside), and CUDA-event spans of the stream, each in
+    order (``device_ms()``, read after one synchronize)."""
 
     def __init__(self):
-        self.seconds = {}
+        self.seconds, self.events = {}, []
 
     def wrap(self, name, fn):
         def timed(*args, **kwargs):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
             t0 = time.perf_counter()
             try:
                 return fn(*args, **kwargs)
             finally:
+                end.record()
                 self.seconds[name] = self.seconds.get(name, 0.0) + time.perf_counter() - t0
+                self.events.append((name, start, end))
 
         return timed
+
+    def device_ms(self):
+        """{name: [ms of each span, in order]}."""
+        torch.cuda.synchronize()
+        out = {}
+        for name, a, b in self.events:
+            out.setdefault(name, []).append(a.elapsed_time(b))
+        return out
 
 
 def fc2_run(argv, name):
     """One eval-fc2 command (``argv`` without --out-dir): its means (every one
     finite), the files it wrote and its wall seconds split into the metric
     nets, FID's host math and the rest (stylizing)."""
-    watch = Stopwatch()
+    watch = Spans()
     saved = (InceptionV3.__call__, LPIPS.__call__, fc2_module.fid_from_activations,
              drivers_module.fid_from_activations)
     InceptionV3.__call__ = watch.wrap("inception_s", saved[0])
@@ -1235,28 +1278,37 @@ def phase_fc2_metrics(dev):
     emit(record)
 
 
-def gan_card_vs_cpu(steps):
-    """Each step of ``steps`` (``vst_torch.train.parity``) on the card against
-    the CPU: losses in f32, gradients in f64 (in f32 rounding decides a
-    part of each gradient)."""
+def gan_card_vs_cpu(what, steps, dev, lr=None):
+    """Each step of ``steps(device, dtype)`` (``vst_torch.train.parity``:
+    {step: (losses, gradients[, parameters after the update])}) on the card
+    against the CPU: losses in f32, gradients in f64 (in f32 rounding
+    decides a part of each gradient) and, where the steps return them, the
+    parameters after an update of rate ``lr`` in f64."""
     out = {}
-    f32 = (steps("cpu", torch.float32), steps("cuda", torch.float32))
-    f64 = (steps("cpu", torch.float64), steps("cuda", torch.float64))
-    for name in f32[0]:
+    f32 = (steps("cpu", torch.float32), steps(dev, torch.float32))
+    f64 = (steps("cpu", torch.float64), steps(dev, torch.float64))
+    for name, want in f64[0].items():
+        got = f64[1][name]
         loss_rel = max_loss_rel_err(f32[1][name][0], f32[0][name][0])
-        grad_rel, _ = grad_errors(f64[1][name][1], f64[0][name][1])
-        if not (loss_rel <= GAN_LOSS_RTOL and grad_rel <= GAN_GRAD_RTOL):
-            raise AssertionError(f"{steps.__name__} {name} card vs CPU: loss {loss_rel} > "
-                                 f"{GAN_LOSS_RTOL} or f64 gradient {grad_rel} > {GAN_GRAD_RTOL}")
-        out[name] = {"losses": f32[0][name][0], "loss_max_rel_err": loss_rel,
-                     "f64_grad_max_rel_err": grad_rel,
-                     "f32_grad_max_rel_err": grad_errors(f32[1][name][1], f32[0][name][1])[0]}
+        grad_rel, _ = grad_errors(got[1], want[1])
+        rec = {"losses": f32[0][name][0], "loss_max_rel_err": loss_rel,
+               "f64_grad_max_rel_err": grad_rel,
+               "f32_grad_max_rel_err": grad_errors(f32[1][name][1], f32[0][name][1])[0]}
+        if len(want) > 2:
+            rec["f64_param_max_rel_err"] = param_errors(got[2], want[2], want[1], lr)
+        if not (loss_rel <= GAN_LOSS_RTOL
+                and max(grad_rel, rec.get("f64_param_max_rel_err", 0.0)) <= GAN_GRAD_RTOL):
+            raise AssertionError(f"{what} {name} card vs CPU: loss {loss_rel} > {GAN_LOSS_RTOL}"
+                                 f" or f64 gradient / parameter {grad_rel} / "
+                                 f"{rec.get('f64_param_max_rel_err')} > {GAN_GRAD_RTOL}")
+        out[name] = rec
     return out
 
 
 def gan_eval_card_vs_cpu(dev, family):
-    """A StarGAN Sintel driver on a 7-frame 64×96 clip with RAFT (4 iterations)
-    on the card (through the kernel) against the CPU (the plain lookup),
+    """A GAN family's Sintel driver (StarGAN v2, v1, or CycleGAN with three
+    16-wide generators) on a 7-frame 64×96 clip with RAFT (4 iterations) on
+    the card (through the kernel) against the CPU (the plain lookup),
     seeded weights: every TCL value within TCL_RTOL relative and positive."""
     small = SintelVideo("small", synthetic_clip(7, (64, 96), seed=2))
     vals = []
@@ -1268,6 +1320,10 @@ def gan_eval_card_vs_cpu(dev, family):
             res = evaluate_sintel_stargan2(g, f, [small], lambda a, b: raft(a, b), num_domains=4,
                                            styles=stargan2_styles(4, 16), dt_iters=1,
                                            device=device)
+        elif family == "cyclegan":
+            gens = [ResnetGenerator(3, 3, 16).to(device).eval() for _ in range(3)]
+            res = evaluate_sintel_cyclegan(gens, [small], lambda a, b: raft(a, b), dt_iters=1,
+                                           device=device)
         else:
             g = StarGANGenerator(64, 4, 6).to(device)
             res = evaluate_sintel_stargan(g, [small], lambda a, b: raft(a, b), c_dim=4,
@@ -1278,6 +1334,19 @@ def gan_eval_card_vs_cpu(dev, family):
         raise AssertionError(f"eval-sintel {family}: small clip card vs CPU {rel} > {TCL_RTOL} "
                              f"or not positive: {vals}")
     return rel
+
+
+def sintel_tree():
+    """A temporary Sintel-layout tree of vst's 8-frame synthetic clip at
+    436×1024 as PNGs (the loader crops it to 432×1024), so that eval-sintel
+    runs RAFT (without --sintel-dir it scores the clip with its exact flow)."""
+    sintel = tempfile.TemporaryDirectory()
+    clip = os.path.join(sintel.name, "training", "final", "synthetic_1")
+    os.makedirs(clip)
+    for i, frame in enumerate(cli_synthetic_clip(SINTEL_HW, 8, 0)[0]):
+        write_png(os.path.join(clip, f"frame_{i + 1:04d}.png"),
+                  np.round(frame * 255).astype(np.uint8))
+    return sintel
 
 
 def stargan2_split(dev, corpus):
@@ -1299,16 +1368,11 @@ def stargan2_split(dev, corpus):
              "g_steps": lambda: [trainer.g_step(k, k == "latent", {**batch, "z": z})
                                  for k in ("latent", "ref")],
              "ema": trainer.ema_step}
-    events = {}
+    spans = Spans()
     torch.cuda.synchronize()
     for name, fn in parts.items():
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        events[name] = (start, end)
-    torch.cuda.synchronize()
-    split = {f"{name}_ms": a.elapsed_time(b) for name, (a, b) in events.items()}
+        spans.wrap(f"{name}_ms", fn)()
+    split = {name: ms for name, (ms,) in spans.device_ms().items()}
     profile = profile_call(lambda: trainer.train_iteration(batch))
     return {**split, "profile": {**profile, "host_idle_share": 1.0 - profile["busy_share"]}}
 
@@ -1316,17 +1380,12 @@ def stargan2_split(dev, corpus):
 def phase_stargan(dev):
     record = {"phase": "stargan", "seconds": {}, "eval_sintel": {}, "train": {}, "fc2": {}}
     t0 = time.perf_counter()
-    record["card_vs_cpu"] = {"stargan2_32x32": gan_card_vs_cpu(stargan2_steps),
-                             "stargan_32x32": gan_card_vs_cpu(stargan_steps)}
+    record["card_vs_cpu"] = {"stargan2_32x32": gan_card_vs_cpu("stargan2", stargan2_steps, dev),
+                             "stargan_32x32": gan_card_vs_cpu("stargan", stargan_steps, dev)}
     record["seconds"]["card_vs_cpu"] = time.perf_counter() - t0
 
     launches = {}
-    sintel = tempfile.TemporaryDirectory()
-    clip = os.path.join(sintel.name, "training", "final", "synthetic_1")
-    os.makedirs(clip)
-    for i, frame in enumerate(cli_synthetic_clip(SINTEL_HW, 8, 0)[0]):
-        write_png(os.path.join(clip, f"frame_{i + 1:04d}.png"),
-                  np.round(frame * 255).astype(np.uint8))
+    sintel = sintel_tree()
     for family in ("stargan2", "stargan"):
         t0 = time.perf_counter()
         rel = gan_eval_card_vs_cpu(dev, family)
@@ -1391,6 +1450,129 @@ def phase_stargan(dev):
     return launches
 
 
+def cyclegan_raft_card_vs_cpu(dev):
+    """MoGAN's and ConGAN's steps with RAFT (4 iterations) at 64², through the
+    kernel on the card against the plain lookup on the CPU, losses in f32."""
+    out = {}
+    for variant in ("mogan", "congan"):
+        runs = [cyclegan_steps(variant, device, torch.float32, hw=(64, 64),
+                               raft=seeded_raft(4, device, seed=2, lookup=lookup))
+                for device, lookup in ((dev, corr_lookup), ("cpu", lookup_pyramid))]
+        for step in runs[1]:
+            rel = max_loss_rel_err(runs[0][step][0], runs[1][step][0])
+            if rel > GAN_LOSS_RTOL:
+                raise AssertionError(f"cyclegan {variant} {step} with RAFT, kernel vs plain: "
+                                     f"{rel} > {GAN_LOSS_RTOL}")
+            out[f"{variant}_{step}"] = {"losses": runs[1][step][0], "loss_max_rel_err": rel}
+    return out
+
+
+def cyclegan_split(dev, corpus, variant, compute_dtype=None):
+    """One E step of ``variant`` at 256² × 4 split by CUDA events (after 2
+    iterations of warm-up): for MoGAN the motion flows (2 RAFT calls, M_A,
+    M_B), the G step (its RAFT calls apart), the pools and the D step; then
+    one E step under torch.profiler (profile_call: busy share, launches)."""
+    from vst_torch.data.device_cache import DeviceStyledCache
+
+    spans = Spans()
+    raft = seeded_raft(20, dev)
+    trainer = CycleGANTrainer(CycleGANConfig(variant=variant, compute_dtype=compute_dtype),
+                              raft=raft if variant in ("mogan", "congan") else None, seed=0,
+                              device=dev)
+    cache = DeviceStyledCache(corpus, num_dom=2, seed=1, device=dev)
+    batch = cyclegan_batch(cache.sample_cyclegan(CG_BATCH, 1), dev)
+    for i in range(2):
+        trainer.train_iteration(i, batch)
+    trainer.raft = spans.wrap("raft_ms", raft)
+    parts = ("motion_aux", "g_step", "query_pools", "d_step")
+    for name in parts if variant == "mogan" else parts[1:]:
+        setattr(trainer, name, spans.wrap(f"{name}_ms", getattr(trainer, name)))
+    torch.cuda.synchronize()
+    trainer.e_step(batch)
+    spans_ms = spans.device_ms()
+    split = {name: sum(v) for name, v in spans_ms.items()}
+    if "raft_ms" in spans_ms:
+        split["raft_calls_ms"] = spans_ms["raft_ms"]  # MoGAN's first 2 are the motion flows'
+        in_g = spans_ms["raft_ms"][2 if variant == "mogan" else 0:]
+        split["g_step_without_raft_ms"] = split["g_step_ms"] - sum(in_g)
+    profile = profile_call(lambda: trainer.e_step(batch))
+    return {**split, "profile": {**profile, "host_idle_share": 1.0 - profile["busy_share"]}}
+
+
+def phase_cyclegan(dev):
+    record = {"phase": "cyclegan", "seconds": {}, "train": {}, "launches": {}}
+    t0 = time.perf_counter()
+    lr = CycleGANConfig().lr
+    record["card_vs_cpu"] = {
+        **{f"{v}_32x32": gan_card_vs_cpu(f"cyclegan {v}", partial(cyclegan_steps, v), dev, lr)
+           for v in CG_VARIANTS},
+        "raft_64x64": cyclegan_raft_card_vs_cpu(dev)}
+    record["seconds"]["card_vs_cpu"] = time.perf_counter() - t0
+
+    launches = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        corpus = os.path.join(tmp, "styled")
+        pack_styled_corpus(corpus, GAN_CORPUS, CG_HW, num_dom=2)
+        record["seconds"]["corpus_write"] = time.perf_counter() - t0
+        common = ["--hw", *map(str, CG_HW), "--batch-size", str(CG_BATCH), "--steps",
+                  str(GAN_ITERS), "--log-every", "5", "--ckpt-every", str(10 * GAN_ITERS),
+                  "--data-dir", corpus, "--device-cache", str(GAN_CORPUS), "--sid", "1"]
+        runs = {f"{v}_f32": [v] for v in CG_VARIANTS}
+        runs.update(cyclegan_bf16=["cyclegan", "--compute-dtype", "bfloat16"],
+                    mogan_bf16=["mogan", "--compute-dtype", "bfloat16"])
+        for name, (variant, *extra) in runs.items():
+            t0 = time.perf_counter()
+            reset_counts()
+            res = cli_main(["train-cyclegan", "--variant", variant, *common, *extra,
+                            "--out-dir", os.path.join(tmp, name)])
+            counts = kernel_launches()
+            e_calls, m_calls = CG_RAFT_CALLS[variant]
+            if variant == "mogan" and extra:  # the loss's flows of the cast frames
+                e_calls += 2
+            steps_e = (GAN_ITERS + 1) // 2 if variant == "mogan" else GAN_ITERS
+            want = 20 * (steps_e * e_calls + (GAN_ITERS - steps_e) * m_calls)
+            if counts != {"corr_lookup": want, "pad_conv3x3": 0, "gemm_rate": 0}:
+                raise AssertionError(f"train-cyclegan {name}: launches {counts}, corr_lookup "
+                                     f"should be {want}")
+            if res["n_nonfinite"]:
+                raise AssertionError(f"{name}: a loss is not finite: {res['last_losses']}")
+            launches[f"train_{name}"] = counts["corr_lookup"]
+            record["train"][name] = {k: v for k, v in res.items()
+                                     if k not in ("losses", "checkpoints")}
+            record["seconds"][f"train_{name}"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        for variant, dtype in (("mogan", None), ("mogan", "bfloat16"), ("cyclegan", "bfloat16")):
+            name = f"{variant}_{'bf16' if dtype else 'f32'}_split"
+            record["train"][name] = cyclegan_split(dev, corpus, variant, dtype)
+        record["seconds"]["split"] = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        record["eval_small_card_vs_cpu_max_rel_err"] = gan_eval_card_vs_cpu(dev, "cyclegan")
+        sintel = sintel_tree()
+        specs = ",".join(f"{v}:{os.path.join(tmp, v + '_f32')}"
+                         for v in ("cyclegan", "mogan", "congan"))
+        reset_counts()
+        with tempfile.TemporaryDirectory() as out_dir:
+            t1 = time.perf_counter()
+            res = cli_main(["eval-sintel", "--family", "cyclegan", "--sintel-dir", sintel.name,
+                            "--ckpt-dir", specs, "--out-dir", out_dir])
+            seconds = time.perf_counter() - t1
+        sintel.cleanup()
+        counts = kernel_launches()
+        if counts != {"corr_lookup": 420, "pad_conv3x3": 0, "gemm_rate": 0}:
+            raise AssertionError(f"eval-sintel --family cyclegan: launches {counts}, "
+                                 "corr_lookup should be 420")
+        launches["eval_sintel_cyclegan"] = counts["corr_lookup"]
+        record["eval_sintel"] = {
+            **finite_positive({k: res[k][f"{k}_mean"] for k in res}, "eval-sintel cyclegan"),
+            "evaluation_s": seconds, "corr_lookup_launches": counts["corr_lookup"]}
+        record["seconds"]["eval_sintel"] = time.perf_counter() - t0
+    record["launches"] = launches
+    emit(record)
+    return launches
+
+
 def kernel_entries(name, source, replaces, measured):
     """The kernels line's entries of one kernel, one per variant."""
     return [{"name": f"{name}_{variant}", "route": "cuda", "source": source,
@@ -1436,6 +1618,7 @@ def main() -> int:
     obst_launches = phase_obst(dev)
     phase_fc2_metrics(dev)
     gan_launches = phase_stargan(dev)
+    cyclegan_launches = phase_cyclegan(dev)
 
     smi = subprocess.run(["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], check=True, capture_output=True, text=True)
@@ -1451,7 +1634,8 @@ def main() -> int:
          "launches_by_path": {"main_path": launches, "eval_sintel_ruder": ruder_launches,
                               **{f"raft_{k}": v for k, v in bf16_launches.items()},
                               "eval_obst": obst_launches,
-                              **{f"eval_sintel_{k}": v for k, v in gan_launches.items()}}},
+                              **{f"eval_sintel_{k}": v for k, v in gan_launches.items()},
+                              **cyclegan_launches}},
         *kernel_entries("pad_conv3x3", conv_source, "scripts/bisect_im2col.py:20",
                         {f"full_{dt}": per_conv(m) for (_, dt), m in trunk.items()}),
         *kernel_entries("pad_conv3x3", conv_source, "scripts/bisect_kernel_cost.py:15",

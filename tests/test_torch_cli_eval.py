@@ -1,8 +1,9 @@
 """The port's evaluation commands on the CPU at 32×48: ``eval-sintel`` for
 Johnson and Ruder (the synthetic clip and its flow oracle, 3 styles) prints
 vst's summary dict and writes its JSONs; ``stylize-video`` writes one PNG a
-frame and prints vst's JSON keys; the GAN families and a missing card stop
-the command."""
+frame and prints vst's JSON keys; the StarGAN families run, the CycleGAN
+family stops without ``--ckpt-dir`` (vst's message), and a missing card
+stops the command."""
 
 import ast
 import json
@@ -70,16 +71,26 @@ def test_eval_sintel_loads_a_state_dict(tmp_path, capsys):
 
 @pytest.mark.parametrize("family", ["stargan", "stargan2", "cyclegan"])
 def test_eval_sintel_gan_families_are_not_ported(family, tmp_path):
-    """Of the GAN families only CycleGAN is still to port and stops with a
-    pointer (ROADMAP.md §1 item 6); the StarGAN families run."""
+    """The StarGAN families run on seeded nets; the CycleGAN family trains one
+    model a style and has no seeded default: without ``--ckpt-dir`` it
+    stops with vst's message (its runs: ``tests/test_torch_cli_cyclegan.py``)."""
     argv = ["eval-sintel", *SMALL, "--family", family, "--raft-iters", "2", "--dt-iters", "1",
             "--out-dir", str(tmp_path)]
     if family == "cyclegan":
-        with pytest.raises(SystemExit, match="item 6"):
+        with pytest.raises(SystemExit, match="--ckpt-dir required for family=cyclegan"):
             cli_main(argv)
     else:
         res = cli_main(argv)
         assert res["TCL-ST"]["TCL-ST_mean"] > 0 and "TCL-LT_synthetic_1_s3" in res["TCL-LT"]
+
+
+@pytest.mark.parametrize("ckpt_dir", [",", ",,"])
+def test_eval_sintel_cyclegan_needs_a_model_in_its_list(ckpt_dir, tmp_path):
+    """A ``--ckpt-dir`` list that names no model stops as no ``--ckpt-dir``
+    does (vst's check is on the models it read, ``vst/cli/__main__.py:569``)."""
+    with pytest.raises(SystemExit, match="--ckpt-dir required for family=cyclegan"):
+        cli_main(["eval-sintel", *SMALL, "--family", "cyclegan", "--ckpt-dir", ckpt_dir,
+                  "--out-dir", str(tmp_path)])
 
 
 @pytest.mark.parametrize("command", ["eval-sintel", "stylize-video"])

@@ -5,7 +5,9 @@ feed-forward method on the card against the CPU, and the device cache
 against the same cache on the CPU; one OBST level (float64) and the FC2
 metric nets (float32) on the card against the CPU; each step of a StarGAN v2
 iteration and StarGAN v1's D and G steps on the card against the CPU, and
-the styled device cache on the card against the CPU. Marked ``cuda``; they skip where there
+the styled device cache on the card against the CPU; each CycleGAN
+variant's E step (and MoGAN's M step) on the card against the CPU, MoGAN's
+and ConGAN's with RAFT through the kernel. Marked ``cuda``; they skip where there
 is no CUDA device. On a machine with an H100 (``--noconftest``: the suite's
 conftest needs jax, which these tests do not):
 
@@ -28,8 +30,8 @@ from vst_torch.metrics.lpips import LPIPS
 from vst_torch.models.gatys import OBST
 from vst_torch.probes.bisect_im2col import trunk_inputs
 from vst_torch.probes.bisect_mxu import SHAPES as GEMM_SHAPES
-from vst_torch.train.parity import (grad_errors, max_loss_rel_err, stargan2_steps,
-                                    stargan_steps, training_step)
+from vst_torch.train.parity import (cyclegan_steps, grad_errors, max_loss_rel_err,
+                                    param_errors, stargan2_steps, stargan_steps, training_step)
 
 pytestmark = pytest.mark.cuda
 
@@ -338,3 +340,28 @@ def test_styled_cache_on_the_card_is_the_cpus(dev, tmp_path):
         want, got = (getattr(c, sampler)(*args) for c in caches)
         for k, v in want.items():
             torch.testing.assert_close(got[k].cpu(), v, atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("variant", ["cyclegan", "cyclegan_con", "mogan", "congan"])
+def test_cyclegan_steps_on_the_card_match_the_cpu(dev, variant):
+    """At 32² on the stub flow: losses in float32, gradients and updated
+    parameters in float64; MoGAN and ConGAN also at 64² with RAFT (4
+    iterations), the kernel on the card against the plain lookup on the CPU,
+    losses in float32."""
+    for dtype in (torch.float32, torch.float64):
+        want, got = cyclegan_steps(variant, "cpu", dtype), cyclegan_steps(variant, dev, dtype)
+        for step, (w_loss, w_grads, w_params) in want.items():
+            g_loss, g_grads, g_params = got[step]
+            if dtype == torch.float32:
+                assert max_loss_rel_err(g_loss, w_loss) <= GAN_LOSS_RTOL, step
+            else:
+                assert grad_errors(g_grads, w_grads)[0] <= GAN_GRAD_RTOL, step
+                assert param_errors(g_params, w_params, w_grads, 2e-4) <= GAN_GRAD_RTOL, step
+    if variant in ("mogan", "congan"):
+        runs = []
+        for device, lookup in ((dev, corr_lookup), ("cpu", lookup_pyramid)):
+            torch.manual_seed(2)
+            raft = RAFT(iters=4, lookup=lookup).to(device).eval()
+            runs.append(cyclegan_steps(variant, device, torch.float32, raft=raft, hw=(64, 64)))
+        for step in runs[1]:
+            assert max_loss_rel_err(runs[0][step][0], runs[1][step][0]) <= GAN_LOSS_RTOL, step

@@ -68,6 +68,13 @@ def test_gan_modules_are_checked():
         "eval/video")} <= names
 
 
+def test_cyclegan_modules_are_checked():
+    names = {str(p.relative_to(ROOT)) for p in SOURCES}
+    assert {f"vst_torch/{m}.py" for m in (
+        "models/cyclegan", "train/cyclegan", "nn/conv", "data/fc2", "eval/drivers", "convert",
+        "train/parity", "cli/__main__")} <= names
+
+
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_vst_imports(path):
     bad = [(line, mod) for line, mod in _imported_roots(path) if mod in FORBIDDEN]

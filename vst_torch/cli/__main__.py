@@ -8,7 +8,11 @@ family's training and evaluation, and the benchmarks.
                                            [--lambda-tcl 100] [--compute-dtype bfloat16]
                                            [--data-dir ROOT [--device-cache N]]
     python -m vst_torch.cli train-stargan [--hw 128 128] [--batch-size 16] [--n-critic 5]
-    python -m vst_torch.cli eval-sintel [--family faststyle|stargan|stargan2]
+    python -m vst_torch.cli train-cyclegan [--variant cyclegan|cyclegan_con|mogan|congan]
+                                           [--hw 256 256] [--batch-size 4] [--sid 1]
+                                           [--compute-dtype bfloat16]
+                                           [--data-dir ROOT [--device-cache N]]
+    python -m vst_torch.cli eval-sintel [--family faststyle|stargan|stargan2|cyclegan]
                                         [--method johnson|dumoulin|huang|reconet|ruder]
                                         [--hw 436 1024] [--sintel-dir DIR] [--raft-bf16]
     python -m vst_torch.cli stylize-video [--source DIR|VIDEO] [--batch-size 8] [--bf16]
@@ -60,6 +64,24 @@ ends with one JSON line: the iteration time (CUDA events around each
 iteration, the median after 3 warm-up iterations; the host clock on the
 CPU), images/s, peak memory, the first and last losses.
 
+``train-cyclegan``: the CycleGAN family (``vst_torch.train.cyclegan``):
+``--variant`` cyclegan, cyclegan_con (+ the ground-truth-flow temporal
+loss), mogan (motion translators, RAFT in the step, E and M steps in turn)
+or congan (fusion blocks, RAFT in the step); one model a style ``--sid``;
+resnet_9blocks and the 70×70 PatchGAN at ``--ngf`` / ``--ndf``, pool 50,
+the linear schedule over epochs of max(steps // 2, 1) iterations. RAFT
+(``--raft-iters``, ``--raft-ckpt``, ``--raft-bf16``) runs in float32 under
+``--compute-dtype bfloat16`` too. Batches come from the device cache
+(``--data-dir`` with ``--device-cache N``), the corpus read on the host
+(``--data-dir``: ``CycleGANFC2Dataset``) or vst's synthetic batches (B's
+second frame is its first, as vst's). Prints vst's line every
+``--log-every`` iterations (the union of the E and M steps' losses), writes
+``losses.txt`` and junyanz's ``<out-dir>/{step}_net_{name}.pth`` (one
+state_dict a net) every ``--ckpt-every`` iterations and at the end, and
+ends with one JSON line: the E step's (and MoGAN's M step's) median time
+by CUDA events after 3 warm-up iterations (the host clock on the CPU),
+images/s, peak memory, the first and last losses.
+
 ``eval-sintel``: TCL-ST / TCL-LT / DT of the FastStyleNet family on Sintel
 (``--sintel-dir``) or, without it, on an 8-frame synthetic affine-motion
 clip scored with its exact flow (random RAFT weights would fail the
@@ -67,7 +89,10 @@ fb-consistency check everywhere). ``--family stargan2`` scores StarGAN v2's
 EMA nets (``--ckpt-dir``: a ``_nets_ema.ckpt`` file) at vst's 256-pixel
 configuration, styles = domains 1 … D−1 with seeded latents, the clip cropped
 to multiples of 16; ``--family stargan`` StarGAN v1's G (``--ckpt-dir``: a
-``-G.ckpt`` file) at conv_dim 64. Both feed RAFT [−1, 1] frames, as vst.
+``-G.ckpt`` file) at conv_dim 64; ``--family cyclegan`` one model a style
+(``--ckpt-dir``: a comma list of ``variant:dir``, a bare dir meaning
+cyclegan; each dir's newest ``{step}_net_G_A.pth``, its width and depth read
+from the file). All three feed RAFT [−1, 1] frames, as vst.
 Johnson, Dumoulin, Huang and ReCoNet share
 the 3-input net and the generic harness; Ruder runs its streaming protocol
 with a 7-input net and a 3-input frame-0 bootstrap (``--pre-style-ckpt``, a
@@ -113,8 +138,7 @@ for ``f32`` and ``bf16_full_pad64``; and each variant's flow against
 ``f32``'s. It prints one JSON line and writes it to
 ``<out-dir>/raft_timing.json``. Every variant gets the same weights.
 
-Not ported yet: ``eval-sintel --family cyclegan``, ``train-cyclegan`` and the
-other subcommands (``ROADMAP.md`` §1).
+Not ported yet: the other subcommands of vst's CLI (``ROADMAP.md`` §1).
 """
 
 from __future__ import annotations
@@ -122,6 +146,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import time
 from typing import Callable, Dict, Sequence, Tuple
 
@@ -132,22 +157,26 @@ from vst_torch import bench, set_f32_precision
 from vst_torch.core.metrics import MetricsLogger
 from vst_torch.core.timing import windows_ms
 from vst_torch.data.device_cache import DeviceFC2Cache, DeviceStyledCache
-from vst_torch.data.fc2 import DatasetFC2, FC2Loader, synthetic_fc2_batches, train_eval_split
+from vst_torch.data.fc2 import (CycleGANFC2Dataset, DatasetFC2, FC2Loader, synthetic_fc2_batches,
+                                train_eval_split)
 from vst_torch.data.loader import NpyDirDataset
 from vst_torch.data.styles import load_style_images
 from vst_torch.data.synthetic import MARGIN, AffineMotionGenerator, _texture, synthetic_batch
 from vst_torch.eval.drivers import (evaluate_fc2_obst, evaluate_fc2_ruder,
-                                    evaluate_sintel_faststyle, evaluate_sintel_obst,
-                                    evaluate_sintel_ruder, evaluate_sintel_stargan,
-                                    evaluate_sintel_stargan2)
+                                    evaluate_sintel_cyclegan, evaluate_sintel_faststyle,
+                                    evaluate_sintel_obst, evaluate_sintel_ruder,
+                                    evaluate_sintel_stargan, evaluate_sintel_stargan2)
 from vst_torch.eval.fc2 import calculate_metrics
 from vst_torch.eval.sintel import SintelVideo, load_sintel_videos
 from vst_torch.eval.video import _writer, translate_and_reconstruct, write_png
 from vst_torch.flow.raft import RAFT
 from vst_torch.metrics.fid import InceptionV3
+from vst_torch.models.cyclegan import ResnetGenerator
 from vst_torch.models.gatys import OBST
 from vst_torch.models.stargan import Generator as StarGANGenerator
 from vst_torch.ops.image import InputPadder
+from vst_torch.train.cyclegan import (VARIANTS, CycleGANConfig, CycleGANTrainer, cyclegan_batch,
+                                      fc2_to_cyclegan)
 from vst_torch.train.faststyle import FastStyleTrainer, batch_to_tensors
 from vst_torch.train.registry import FASTSTYLE_METHODS, bootstrap_net, method_net, select_method
 from vst_torch.train.stargan import StarGANConfig, StarGANTrainer
@@ -295,10 +324,30 @@ def stargan_eval_generator(args, cfg: StarGANConfig, device: torch.device):
     return g.to(device).eval()
 
 
+def cyclegan_eval_generators(ckpt_dirs: str, device: torch.device):
+    """The G_A of each ``variant:dir`` of ``--ckpt-dir`` (a bare dir is
+    variant cyclegan): the dir's newest ``{step}_net_G_A.pth``, a resnet
+    generator of the file's width and depth."""
+    gens = []
+    for spec in filter(None, ckpt_dirs.split(",")):
+        variant, _, d = spec.rpartition(":")
+        if (variant or "cyclegan") not in VARIANTS:
+            raise SystemExit(f"--ckpt-dir: unknown variant {variant!r}")
+        steps = [int(m.group(1)) for f in os.listdir(d)
+                 if (m := re.fullmatch(r"(\d+)_net_G_A\.pth", f))]
+        if not steps:
+            raise SystemExit(f"--ckpt-dir: no <step>_net_G_A.pth in {d}")
+        sd = load_state(os.path.join(d, f"{max(steps)}_net_G_A.pth"))
+        n_blocks = len({k.split(".")[1] for k in sd if ".conv_block." in k})
+        g = ResnetGenerator(3, 3, sd["model.1.weight"].shape[0], n_blocks)
+        g.load_state_dict(sd)
+        gens.append(g.to(device).eval())
+    return gens
+
+
 def cmd_eval_sintel(args) -> Dict:
-    if args.family == "cyclegan":
-        raise SystemExit("eval-sintel --family cyclegan: the CycleGAN family is not ported "
-                         "yet (ROADMAP.md §1 item 6)")
+    if args.family == "cyclegan" and not any((args.ckpt_dir or "").split(",")):
+        raise SystemExit("--ckpt-dir required for family=cyclegan")  # no model in the list
     device = _device(args)
     set_f32_precision()
     if args.family == "stargan2":
@@ -316,6 +365,9 @@ def cmd_eval_sintel(args) -> Dict:
     elif args.family == "stargan":
         g = stargan_eval_generator(args, StarGANConfig(c_dim=args.num_domains), device)
         results = evaluate_sintel_stargan(g, videos, raft_apply, c_dim=args.num_domains, **kw)
+    elif args.family == "cyclegan":  # one model a style (fc2_eval.py:248-251)
+        results = evaluate_sintel_cyclegan(cyclegan_eval_generators(args.ckpt_dir, device),
+                                           videos, raft_apply, **kw)
     else:
         results = _eval_sintel_faststyle(args, videos, raft_apply, kw, device)
     print({k: v[f"{k}_mean"] for k, v in results.items()})
@@ -692,12 +744,13 @@ def _gan_batches(args, device: torch.device, multidomain: bool):
 
 
 def _gan_loop(args, device: torch.device, source: str, batches, iteration: Callable,
-              checkpoint: Callable, every: Callable = lambda i, batch: None) -> Dict:
+              checkpoint: Callable, every: Callable = lambda i, batch: None,
+              to_device: Callable = gan_batch) -> Dict:
     """The GAN trainers' loop: ``iteration(i, batch)`` → metrics per
     iteration under ``_StepTimer``, vst's log line and ``losses.txt``,
     ``checkpoint(step)`` every ``--ckpt-every`` and at the end, ``every(i,
-    batch)`` after each iteration. Returns the JSON line's dict with the
-    losses and times."""
+    batch)`` after each iteration; ``to_device(batch, device)`` makes the
+    trainer's batch. Returns the JSON line's dict with the losses and times."""
     os.makedirs(args.out_dir, exist_ok=True)
     logger = MetricsLogger(os.path.join(args.out_dir, "losses.txt"))
     timer = _StepTimer(device)
@@ -706,7 +759,7 @@ def _gan_loop(args, device: torch.device, source: str, batches, iteration: Calla
         torch.cuda.reset_peak_memory_stats(device)
     t_loop = time.perf_counter()
     for i in range(args.steps):
-        batch = gan_batch(next(batches), device)
+        batch = to_device(next(batches), device)
         with timer:
             metrics = iteration(i, batch)
         history.append(metrics)
@@ -792,6 +845,86 @@ def cmd_train_stargan(args) -> Dict:
     line = _gan_loop(args, device, source, batches, iteration, checkpoint)
     return _report({"family": "stargan", "n_critic": cfg.n_critic,
                     "g_steps": trainer.counts["G"], **line})
+
+
+def _cyclegan_batches(args, device: torch.device):
+    """(source, an endless iterator of CycleGAN batches): the device cache's
+    ``sample_cyclegan`` (``--data-dir`` with ``--device-cache``), the corpus
+    read on the host (``--data-dir``: ``CycleGANFC2Dataset`` with mask and
+    flow, an epoch a pass, reshuffled with ``--seed`` + epoch), or vst's
+    synthetic batches (real_B2 = real_B, as vst's)."""
+    if args.data_dir and args.device_cache:
+        cache = DeviceStyledCache(args.data_dir, num_dom=max(args.sid + 1, 2),
+                                  limit=args.device_cache, seed=args.seed, device=device)
+        print(f"device cache: {cache.n} samples resident on {device_name(device)}", flush=True)
+
+        def cached():
+            while True:
+                yield cache.sample_cyclegan(args.batch_size, args.sid)
+
+        return "device_cache", cached()
+    if args.data_dir:
+        ds = CycleGANFC2Dataset(args.data_dir, sid=args.sid, with_flow=True)
+
+        def corpus():
+            e = 0
+            while True:
+                yield from ds.epoch(args.batch_size, seed=args.seed + e)
+                e += 1
+
+        return "corpus", corpus()
+
+    def synthetic():
+        j = 0
+        while True:
+            for b in synthetic_fc2_batches(4, args.batch_size, hw=tuple(args.hw), num_dom=2,
+                                           seed=args.seed + j):
+                yield fc2_to_cyclegan(b)
+            j += 4
+
+    return "synthetic", synthetic()
+
+
+def cmd_train_cyclegan(args) -> Dict:
+    device = _device(args)
+    set_f32_precision()
+    raft = _make_raft(args, device) if args.variant in ("mogan", "congan") else None
+    cfg = CycleGANConfig(variant=args.variant, ngf=args.ngf, ndf=args.ndf,
+                         steps_per_epoch=max(args.steps // 2, 1),
+                         compute_dtype=args.compute_dtype)
+    trainer = CycleGANTrainer(cfg, raft=raft, seed=args.seed, device=device)
+    source, batches = _cyclegan_batches(args, device)
+    merged = {}  # MoGAN's E and M steps log different losses: log the union (vst's)
+
+    def iteration(i, b):
+        merged.update(trainer.train_iteration(i, b))
+        return dict(merged)
+
+    def checkpoint(step):
+        paths = []
+        for name, net in trainer.nets.items():  # junyanz's save_networks names
+            paths.append(os.path.join(args.out_dir, f"{step}_net_{name}.pth"))
+            torch.save(net.state_dict(), paths[-1])
+        return paths
+
+    line = _gan_loop(args, device, source, batches, iteration, checkpoint,
+                     to_device=cyclegan_batch)
+    ms = line["iteration_ms"]
+    mogan = args.variant == "mogan"
+
+    def median_ms(steps):
+        """The median of those iterations after the warm-up (all, if none is)."""
+        late = [i for i in steps if i >= WARMUP_STEPS] or steps
+        return float(np.median([ms[i] for i in late])) if late else None
+
+    e_ms = median_ms([i for i in range(len(ms)) if not mogan or i % 2 == 0])
+    m_ms = median_ms([i for i in range(1, len(ms), 2)]) if mogan else None
+    per_iteration = e_ms if m_ms is None else (e_ms + m_ms) / 2
+    return _report({"family": "cyclegan", "variant": args.variant,
+                    "compute_dtype": args.compute_dtype or "float32", "ngf": args.ngf,
+                    "ndf": args.ndf, **line, "e_step_ms_median": e_ms, "m_step_ms_median": m_ms,
+                    "images_per_s": args.batch_size * 1e3 / per_iteration,
+                    "e_steps": trainer.counts["G"], "m_steps": trainer.counts.get("M", 0)})
 
 
 def source_frames(args) -> np.ndarray:
@@ -929,7 +1062,6 @@ def _add_gan_common(p, hw, batch_size: int, ckpt_every: str) -> None:
     p.add_argument("--batch-size", type=int, default=batch_size)
     p.add_argument("--log-every", type=int, default=10)
     p.add_argument("--ckpt-every", type=int, default=1000, help=ckpt_every)
-    p.add_argument("--num-domains", type=int, default=4)
     p.add_argument("--data-dir", default=None,
                    help="corpus root (styled-files, styled-files3, DATAFiles); synthetic "
                         "batches if omitted")
@@ -973,6 +1105,7 @@ def parser() -> argparse.ArgumentParser:
                   "the reference's key names (vst writes orbax directories, which need jax)")
     s = sub.add_parser("train-stargan2", help="StarGAN v2 Adv / AdvCon training")
     _add_gan_common(s, hw=(256, 256), batch_size=8, ckpt_every=ckpt_every)
+    s.add_argument("--num-domains", type=int, default=4)
     s.add_argument("--style-dim", type=int, default=64)
     s.add_argument("--latent-dim", type=int, default=16)
     s.add_argument("--max-conv-dim", type=int, default=512)
@@ -986,10 +1119,29 @@ def parser() -> argparse.ArgumentParser:
 
     s = sub.add_parser("train-stargan", help="StarGAN v1 (WGAN-GP) training")
     _add_gan_common(s, hw=(128, 128), batch_size=16, ckpt_every=ckpt_every)
+    s.add_argument("--num-domains", type=int, default=4)
     s.add_argument("--conv-dim", type=int, default=64)
     s.add_argument("--repeat-num", type=int, default=6)
     s.add_argument("--n-critic", type=int, default=5)
     s.set_defaults(fn=cmd_train_stargan)
+
+    s = sub.add_parser("train-cyclegan", help="CycleGAN / CycleGANCon / MoGAN / ConGAN training")
+    _add_gan_common(s, hw=(256, 256), batch_size=4,
+                    ckpt_every="write <out-dir>/{step}_net_{name}.pth (one state_dict a net, "
+                               "junyanz's names) every N iterations and at the end")
+    s.add_argument("--variant", default="cyclegan", choices=VARIANTS)
+    s.add_argument("--ngf", type=int, default=64)
+    s.add_argument("--ndf", type=int, default=64)
+    s.add_argument("--sid", type=int, default=1,
+                   help="style id: one model a style (fc2_dataset.py)")
+    s.add_argument("--raft-iters", type=int, default=20)
+    s.add_argument("--raft-ckpt", default=None, help="the reference's RAFT state_dict file")
+    s.add_argument("--raft-bf16", action=argparse.BooleanOptionalAction, default=None,
+                   help="bf16 RAFT encoders (default off: vst turns them on only on a TPU)")
+    s.add_argument("--compute-dtype", default=None, choices=[None, "bfloat16"],
+                   help="vst's bf16 policy for G and D (vst_torch.train.policy); RAFT and the "
+                        "M nets stay float32")
+    s.set_defaults(fn=cmd_train_cyclegan)
 
     s = sub.add_parser("eval-sintel", help="TCL-ST / TCL-LT / DT video benchmark")
     _add_common(s)
@@ -1005,7 +1157,8 @@ def parser() -> argparse.ArgumentParser:
     s.add_argument("--ckpt-dir", default=None,
                    help="a torch file with the reference's key names: the method's "
                         "FastStyleNet state_dict; StarGAN v2's *_nets_ema.ckpt (a dict of "
-                        "state_dicts); StarGAN v1's *-G.ckpt")
+                        "state_dicts); StarGAN v1's *-G.ckpt; for the CycleGAN family a comma "
+                        "list of variant:dir (each dir's newest {step}_net_G_A.pth)")
     s.add_argument("--raft-iters", type=int, default=20)
     s.add_argument("--raft-ckpt", default=None, help="the reference's RAFT state_dict file")
     s.add_argument("--raft-bf16", action=argparse.BooleanOptionalAction, default=None,

@@ -3,8 +3,9 @@
 The inverses of ``vst.models.faststyle.faststyle_params_from_torch``,
 ``vst.flow.raft.raft_params_from_torch``, ``vst.perceptual.vgg``'s
 ``vgg16/19_params_from_torch`` and ``caffe_vgg_params_from_torch``, and
-``vst.models.stargan2``'s four ``*_params_from_torch``; and StarGAN v1's
-bridge, which vst does not have. Each takes the param tree (without the
+``vst.models.stargan2``'s four ``*_params_from_torch``; and the bridges
+vst does not have, StarGAN v1's and the CycleGAN family's (generators,
+discriminators, ConGAN's fusion block). Each takes the param tree (without the
 outer ``"params"`` key) with numpy leaves; conv kernels go (kh, kw, I, O) →
 (O, I, kh, kw) (a transposed conv's (kh, kw, O, I) → (I, O, kh, kw), the
 same permutation), dense kernels (in, out) → (out, in).
@@ -239,4 +240,87 @@ def stargan_discriminator_state_dict_from_jax(params: dict) -> Dict[str, torch.T
         _put_conv(sd, f"main.{2 * k}", params[f"_Conv_{k}"]["Conv_0"])
     _put_conv(sd, "conv1", params[f"_Conv_{n}"]["Conv_0"])
     _put_conv(sd, "conv2", params[f"_Conv_{n + 1}"]["Conv_0"])
+    return sd
+
+
+def _put_norm_if(sd: Dict[str, torch.Tensor], key: str, params: dict, name: str) -> None:
+    """A CycleGAN ``_Norm``: a scope only where it has parameters ('batch')."""
+    if name in params:
+        _put_norm(sd, key, params[name])
+
+
+def _unet_level_key(level: int) -> str:
+    """The ``model`` Sequential of U-Net level ``level`` (0 outermost):
+    ``model.model``, ``model.model.1.model``, then ``….model.3.model``."""
+    key = "model"
+    for i in range(level):
+        key += ".model.1" if i == 0 else ".model.3"
+    return key + ".model"
+
+
+def cyclegan_generator_state_dict_from_jax(params: dict, netG: str) -> Dict[str, torch.Tensor]:
+    """vst ``ResnetGenerator`` / ``UnetGenerator`` params → the port's (and
+    junyanz's) keys. flax names the convs in call order: a resnet's
+    ``_Conv_0..2`` the stem and downs, ``ResnetBlock_r/_Conv_{0,1}``,
+    ``_ConvT_{0,1}``, ``_Conv_3`` the head; a U-Net's ``_Conv_L`` is level
+    L's down conv and ``_ConvT_k`` level n−1−k's up conv (the innermost
+    returns first). 'batch' norms (``_Norm_k``, call order) come along."""
+    sd: Dict[str, torch.Tensor] = {}
+    if netG.startswith("resnet"):
+        n = sum(1 for name in params if name.startswith("ResnetBlock_"))
+        for c, i in enumerate((1, 4, 7)):
+            _put_conv(sd, f"model.{i}", params[f"_Conv_{c}"]["Conv_0"])
+            _put_norm_if(sd, f"model.{i + 1}", params, f"_Norm_{c}")
+        for r in range(n):
+            block = params[f"ResnetBlock_{r}"]
+            for m, i in enumerate((1, 5)):
+                _put_conv(sd, f"model.{10 + r}.conv_block.{i}", block[f"_Conv_{m}"]["Conv_0"])
+                _put_norm_if(sd, f"model.{10 + r}.conv_block.{i + 1}", block, f"_Norm_{m}")
+        for t in range(2):
+            i = 10 + n + 3 * t
+            _put_conv(sd, f"model.{i}", params[f"_ConvT_{t}"]["ConvTranspose_0"])
+            _put_norm_if(sd, f"model.{i + 1}", params, f"_Norm_{3 + t}")
+        _put_conv(sd, f"model.{17 + n}", params["_Conv_3"]["Conv_0"])
+        return sd
+    n = sum(1 for name in params if name.startswith("_Conv_"))
+    for level in range(n):
+        key = _unet_level_key(level)
+        outermost, innermost = level == 0, level == n - 1
+        _put_conv(sd, f"{key}.{0 if outermost else 1}", params[f"_Conv_{level}"]["Conv_0"])
+        up = 3 if outermost or innermost else 5
+        _put_conv(sd, f"{key}.{up}", params[f"_ConvT_{n - 1 - level}"]["ConvTranspose_0"])
+        if not outermost:
+            if not innermost:
+                _put_norm_if(sd, f"{key}.2", params, f"_Norm_{level - 1}")
+            _put_norm_if(sd, f"{key}.{up + 1}", params, f"_Norm_{2 * n - 3 - level}")
+    return sd
+
+
+def cyclegan_discriminator_state_dict_from_jax(params: dict, netD: str) -> Dict[str, torch.Tensor]:
+    """vst ``NLayerDiscriminator`` (basic, n_layers) or ``PixelDiscriminator``
+    params → the port's (and junyanz's) ``model.{i}`` / ``net.{i}`` keys."""
+    sd: Dict[str, torch.Tensor] = {}
+    if netD == "pixel":
+        for c, i in enumerate((0, 2, 5)):
+            _put_conv(sd, f"net.{i}", params[f"_Conv_{c}"]["Conv_0"])
+        _put_norm_if(sd, "net.3", params, "_Norm_0")
+        return sd
+    n_layers = sum(1 for name in params if name.startswith("_Conv_")) - 2
+    _put_conv(sd, "model.0", params["_Conv_0"]["Conv_0"])
+    for k in range(1, n_layers + 1):
+        i = 2 + 3 * (k - 1)
+        _put_conv(sd, f"model.{i}", params[f"_Conv_{k}"]["Conv_0"])
+        _put_norm_if(sd, f"model.{i + 1}", params, f"_Norm_{k - 1}")
+    _put_conv(sd, f"model.{2 + 3 * n_layers}", params[f"_Conv_{n_layers + 1}"]["Conv_0"])
+    return sd
+
+
+def fusion_block_state_dict_from_jax(params: dict) -> Dict[str, torch.Tensor]:
+    """vst ``FusionBlock`` params (``ConvLayer_{0,1,2}``,
+    ``InstanceNorm_{0,1}``) → the port's ``conv{1,2,3}.conv2d``, ``in{1,2}``."""
+    sd: Dict[str, torch.Tensor] = {}
+    for i in range(3):
+        _put_conv(sd, f"conv{i + 1}.conv2d", params[f"ConvLayer_{i}"]["TorchConv_0"]["Conv_0"])
+    for i in range(2):
+        _put_norm(sd, f"in{i + 1}", params[f"InstanceNorm_{i}"])
     return sd

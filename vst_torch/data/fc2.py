@@ -13,8 +13,8 @@
 Images are read through PIL (vst reads them with imageio, which reads a JPEG
 through PIL too; the port does not require imageio). ``synthetic_fc2_batches``
 makes the same batch dict without files; ``FC2Fetcher`` adds the GAN
-trainers' latent draws. ``CycleGANFC2Dataset`` belongs to the CycleGAN family
-(ROADMAP item 6).
+trainers' latent draws; ``CycleGANFC2Dataset`` is the CycleGAN family's
+reader of the same trees.
 """
 
 from __future__ import annotations
@@ -88,6 +88,59 @@ class DatasetFC2:
                 "x_ref": ref, "y_ref": np.int32(ref_lbl),
                 "mask": np_data[:, :, 6:7].astype(np.float32),
                 "flow": np_data[:, :, 7:9].astype(np.float32)}
+
+
+class CycleGANFC2Dataset:
+    """The CycleGAN family's FC2 reader (``vst/data/fc2.py:183-239``,
+    ``CycleGAN/fc2_dataset.py:19-66``; one model per style ``sid``): a sample
+    is real_A from ``styled-files/style0``, real_A2 its ``_2`` next frame
+    from ``styled-files3/style0``, real_B and real_B2 the same names from
+    ``style{sid}``, in [−1, 1] (NHWC float32); ``with_flow`` adds mask and
+    flow, channels 6:7 and 7:9 of ``DATAFiles/<stem>.npy``
+    (CycleGANCon ``fc2_dataset.py:32-46``). Names sorted, then shuffled with
+    ``random.Random(1234)``. Images are read through PIL (vst: imageio)."""
+
+    def __init__(self, dset_dir: str, sid: int = 1, with_flow: bool = False):
+        self.data_dir1 = os.path.join(dset_dir, "styled-files", "style0")
+        self.data_dir2 = os.path.join(dset_dir, "styled-files3", "style0")
+        self.style_dir1 = os.path.join(dset_dir, "styled-files", f"style{sid}")
+        self.style_dir2 = os.path.join(dset_dir, "styled-files3", f"style{sid}")
+        self.npy_dir = os.path.join(dset_dir, "DATAFiles") if with_flow else None
+        names = sorted(os.listdir(self.data_dir1))
+        if len(names) != len(os.listdir(self.data_dir2)):
+            raise ValueError(f"{self.data_dir1} and {self.data_dir2} differ in length")
+        self.dataset = [(n, os.path.splitext(n)[0] + "_2" + os.path.splitext(n)[1])
+                        for n in names]
+        random.Random(1234).shuffle(self.dataset)
+
+    def __len__(self):
+        return len(self.dataset)
+
+    def __getitem__(self, index: int) -> Dict[str, np.ndarray]:
+        def load(path):
+            return _read_image(path).astype(np.float32) / 255.0 * 2 - 1
+
+        n1, n2 = self.dataset[index]
+        out = {"real_A": load(os.path.join(self.data_dir1, n1)),
+               "real_A2": load(os.path.join(self.data_dir2, n2)),
+               "real_B": load(os.path.join(self.style_dir1, n1)),
+               "real_B2": load(os.path.join(self.style_dir2, n2))}
+        if self.npy_dir:
+            np_data = np.load(os.path.join(self.npy_dir, os.path.splitext(n1)[0] + ".npy"))[0]
+            out["mask"] = np_data[:, :, 6:7].astype(np.float32)
+            out["flow"] = np_data[:, :, 7:9].astype(np.float32)
+        return out
+
+    def epoch(self, batch_size: int, shuffle: bool = True, seed: int = 0
+              ) -> Iterator[Dict[str, np.ndarray]]:
+        """Batches of one pass, in ``np.random.RandomState(seed)``'s order;
+        the tail short of a batch is dropped."""
+        order = np.arange(len(self.dataset))
+        if shuffle:
+            np.random.RandomState(seed).shuffle(order)
+        for i in range(0, len(order) - batch_size + 1, batch_size):
+            samples = [self[int(j)] for j in order[i:i + batch_size]]
+            yield {k: np.stack([s[k] for s in samples]) for k in samples[0]}
 
 
 def train_eval_split(n: int, split: float = 0.97, seed: int = 0):

@@ -6,7 +6,9 @@
 * OBST on Sintel (``:147-279``, streaming with a warm start from the warped
   previous stylized frame) and on FC2 (``:282-375``);
 * StarGAN v2 and v1 on Sintel (``:76-132``): frames in [−1, 1] into the
-  generator and into RAFT, domains 1 … D−1 as the styles.
+  generator and into RAFT, domains 1 … D−1 as the styles;
+* the CycleGAN family on Sintel (``:131-144``, vst's CLI ``:547-573``): one
+  model a style, frames in [−1, 1].
 
 The feed-forward harness normalises frames with mean/std 0.5
 (``fast_style_transfer.py:407-410``): the net sees [−1, 1] frames, and so
@@ -19,7 +21,7 @@ from __future__ import annotations
 
 import os
 from collections import OrderedDict
-from typing import Callable, Optional
+from typing import Callable, Optional, Sequence
 
 import numpy as np
 import torch
@@ -221,6 +223,31 @@ def evaluate_sintel_stargan(generator, videos, raft_apply: Callable, c_dim: int 
         videos, stargan_stylize_fn(generator, c_dim), raft_apply,
         styles=list(range(1, c_dim)), out_path=out_path,
         frame_transform=lambda f: f * 2.0 - 1.0, num_domains=c_dim, device=device, **kw)
+
+
+def cyclegan_stylize_fn(generators: Sequence[torch.nn.Module]):
+    """vst's ``cyclegan_stylize_fn``: the family trains one model a style
+    (``CycleGAN_train_sid{1,2,3}.sh``), so every model's G_A runs and the
+    style index, clipped into range, picks one output
+    (``fc2_eval.py:248-251``). The index is a device tensor: no host sync."""
+
+    def fn(img, style_idx):
+        outs = torch.stack([g(img) for g in generators])
+        idx = torch.as_tensor(style_idx, device=outs.device).long().reshape(1)
+        return outs.index_select(0, idx.clamp(0, len(generators) - 1))[0]
+
+    return fn
+
+
+def evaluate_sintel_cyclegan(generators: Sequence[torch.nn.Module], videos,
+                             raft_apply: Callable, out_path=None, device="cuda", **kw):
+    """The CycleGAN family on Sintel (vst's CLI, ``vst/cli/__main__.py:
+    547-573``): style d is model d's G_A, frames ×2−1 into the nets and
+    RAFT; the generators must lie on ``device``."""
+    return evaluate_videos(
+        videos, cyclegan_stylize_fn(generators), raft_apply,
+        styles=list(range(len(generators))), out_path=out_path,
+        frame_transform=lambda f: f * 2.0 - 1.0, device=device, **kw)
 
 
 def fc2_tasks(num_domains: int):

@@ -27,22 +27,8 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from vst_torch.nn.conv import ConvT
 from vst_torch.nn.norm import InstanceNorm
-
-
-class ConvT(nn.ConvTranspose2d):
-    """vst's ``_ConvT`` (``vst/models/cyclegan.py:55-80``): flax
-    ``ConvTranspose`` with ``transpose_kernel=True`` and padding
-    (k−1−p, k−1−p+op), which is ``nn.ConvTranspose2d(k, stride 2, p,
-    output_padding=op)``; kernel N(0, 0.02), bias 0."""
-
-    def __init__(self, in_channels: int, out_channels: int, kernel: int = 3, torch_pad: int = 1,
-                 out_pad: int = 1):
-        super().__init__(in_channels, out_channels, kernel, stride=2, padding=torch_pad,
-                         output_padding=out_pad)
-        with torch.no_grad():
-            self.weight.normal_(0.0, 0.02)
-            self.bias.zero_()
 
 
 class ResidualBlock(nn.Module):

@@ -39,6 +39,22 @@ class TorchConv(nn.Conv2d):
         return self._conv_forward(x.to(dt), self.weight.to(dt), bias)
 
 
+class ConvT(nn.ConvTranspose2d):
+    """vst's ``_ConvT`` (``vst/models/cyclegan.py:55-80``), shared by the
+    CycleGAN and StarGAN v1 nets: flax ``ConvTranspose`` with
+    ``transpose_kernel=True`` and padding (k−1−p, k−1−p+op), which is
+    ``nn.ConvTranspose2d(k, stride 2, p, output_padding=op)``; kernel
+    N(0, 0.02), bias 0."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel: int = 3, torch_pad: int = 1,
+                 out_pad: int = 1):
+        super().__init__(in_channels, out_channels, kernel, stride=2, padding=torch_pad,
+                         output_padding=out_pad)
+        with torch.no_grad():
+            self.weight.normal_(0.0, 0.02)
+            self.bias.zero_()
+
+
 @contextlib.contextmanager
 def cudnn_enabled(enabled: bool):
     """Run CUDA convolutions on cuDNN or, with ``enabled=False``, on

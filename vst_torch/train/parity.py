@@ -3,7 +3,7 @@ two such steps: how the card's step is held against the CPU's
 (``chip_smoke.py``, ``tests/test_torch_cuda.py``) and the port's against
 vst's (``tests/torch_train_parity.py``). The feed-forward family's step is
 :func:`training_step`; the StarGAN trainers' are :func:`stargan2_steps` and
-:func:`stargan_steps`.
+:func:`stargan_steps`; the CycleGAN family's :func:`cyclegan_steps`.
 
 Gradients are compared per parameter in relative L2. A gradient that is 0 in
 exact arithmetic (a conv bias in front of an instance norm, which subtracts
@@ -23,6 +23,8 @@ import torch
 from vst_torch.data.fc2 import synthetic_fc2_batches
 from vst_torch.data.styles import load_style_images
 from vst_torch.data.synthetic import synthetic_batch
+from vst_torch.train.cyclegan import (CycleGANConfig, CycleGANTrainer, cyclegan_batch,
+                                      fc2_to_cyclegan)
 from vst_torch.train.faststyle import FastStyleTrainer, batch_to_tensors
 from vst_torch.train.registry import select_method
 from vst_torch.train.stargan import StarGANConfig, StarGANTrainer
@@ -118,6 +120,49 @@ def stargan_steps(device, dtype: torch.dtype, seed: int = 0
     return out
 
 
+# the CycleGAN family's: 2-block generators, 8 wide, pool 4
+CYCLEGAN_SMALL = dict(netG="resnet_2blocks", ngf=8, ndf=8, pool_size=4, steps_per_epoch=10)
+
+
+def stub_flow(img1, img2):
+    """A stand-in for RAFT with its signature (vst's, ``tests/test_cyclegan.py:
+    160-163``): (None, the channel mean of img1 − img2 and its negation)."""
+    d = (img1 - img2).mean(1, keepdim=True)
+    return None, torch.cat([d, -d], 1)
+
+
+def cyclegan_steps(variant: str, device, dtype: torch.dtype, seed: int = 0, raft=None,
+                   hw=(32, 32)) -> Dict[str, Tuple[Dict[str, float], Dict[str, torch.Tensor],
+                                                   Dict[str, torch.Tensor]]]:
+    """One E step of ``variant`` (and, for MoGAN, one M step from the same
+    start) at ``CYCLEGAN_SMALL`` on ``device`` in ``dtype``, from seed
+    ``seed``'s weights, a synthetic batch of 2 at ``hw`` and draws made on
+    the CPU: {"e" | "m": (losses, the updated nets' gradients, their
+    parameters after the update; both float64 on the CPU, keyed
+    ``net.param``)}, the order of :func:`stargan_steps` plus the parameters. MoGAN and
+    ConGAN take ``raft`` (a RAFT on ``device``) or the stub flow."""
+    temporal = variant in ("mogan", "congan")
+    fc2 = [synthetic_fc2_batches(1, 2, hw=tuple(hw), num_dom=2, seed=seed + k)[0] for k in (1, 101)]
+    batch = {k: v.to(dtype) for k, v in cyclegan_batch(fc2_to_cyclegan(*fc2), device).items()}
+    g = torch.Generator().manual_seed(seed + 2)
+    draws = tuple((torch.rand(2, generator=g).to(device),
+                   torch.randint(0, CYCLEGAN_SMALL["pool_size"], (2,), generator=g).to(device))
+                  for _ in range(2))
+    out = {}
+    for step in ("e", "m") if variant == "mogan" else ("e",):
+        trainer = CycleGANTrainer(CycleGANConfig(variant=variant, **CYCLEGAN_SMALL),
+                                  raft=(raft or stub_flow) if temporal else None, seed=seed,
+                                  device=device)
+        for net in trainer.nets.values():
+            net.to(dtype)
+        metrics = trainer.e_step(batch, draws) if step == "e" else trainer.m_step(batch)
+        names = [k for g in (("G", "D") if step == "e" else ("M",)) for k in trainer.groups[g]]
+        out[step] = ({k: v.item() for k, v in metrics.items()}, _grads(trainer.nets, names),
+                     {f"{k}.{n}": p.detach().double().cpu() for k in names
+                      for n, p in trainer.nets[k].named_parameters()})
+    return out
+
+
 def max_loss_rel_err(got: Dict[str, float], want: Dict[str, float]) -> float:
     """The largest relative difference of two steps' losses (0 where both are 0)."""
     return max(abs(got[k] - w) / abs(w) if w else abs(got[k]) for k, w in want.items())
@@ -144,3 +189,27 @@ def grad_errors(got: Dict[str, torch.Tensor], want: Dict[str, torch.Tensor]
         else:
             worst = max(worst, d / norm)
     return worst, diff ** 0.5 / total
+
+
+def param_errors(got: Dict[str, torch.Tensor], want: Dict[str, torch.Tensor],
+                 want_grads: Dict[str, torch.Tensor], lr: float) -> float:
+    """The worst per-parameter ‖got − want‖ / ‖want‖ of two sets of
+    parameters after one Adam step from the same start. A parameter whose
+    gradient is 0 in exact arithmetic (below ``ZERO_GRAD`` of the whole on
+    the reference side) moves by rounding noise over Adam's eps, up to lr an
+    element on either side: for it no ratio is taken and |got − want| ≤ 2·lr
+    an element is required."""
+    if set(got) != set(want):
+        raise ValueError(f"different parameters: {sorted(set(got) ^ set(want))}")
+    total = sum(float(g.double().norm()) ** 2 for g in want_grads.values()) ** 0.5
+    worst = 0.0
+    for name, w in want.items():
+        g, w = got[name].double(), w.double()
+        if not torch.isfinite(g).all():
+            raise AssertionError(f"{name}: parameter not finite")
+        if float(want_grads[name].double().norm()) < ZERO_GRAD * total:
+            if float((g - w).abs().max()) > 2 * lr:
+                raise AssertionError(f"{name}: a parameter of gradient 0 moved more than lr")
+        else:
+            worst = max(worst, float((g - w).norm() / w.norm()))
+    return worst

@@ -7,8 +7,8 @@ function):
 
 * master parameters and optimizer state stay float32;
 * the loss function casts the parameters and the image and latent inputs to
-  the compute dtype on entry (:func:`call`, through
-  ``torch.func.functional_call``); the gradients come back through the
+  the compute dtype on entry (:func:`call`, or :func:`caller` for the
+  nets of one loss, through ``torch.func.functional_call``); the gradients come back through the
   casts and reach the float32 masters as float32;
 * instance-norm statistics are float32 whatever the activations' dtype
   (``vst_torch.nn.norm.instance_norm``);
@@ -17,7 +17,7 @@ function):
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Callable, Dict, Optional
 
 import torch
 from torch.func import functional_call
@@ -56,6 +56,18 @@ def call(net: torch.nn.Module, dtype: Optional[torch.dtype], *args):
     if dtype is None:
         return net(*args)
     return functional_call(net, cast_params(net, dtype), args)
+
+
+def caller(nets: Dict[str, torch.nn.Module], names, dtype: Optional[torch.dtype]
+           ) -> Callable[..., torch.Tensor]:
+    """``f(name, *args)``: ``call(nets[name], dtype, *args)`` with the
+    parameters of each net of ``names`` cast once, when ``f`` is made, as
+    vst casts the parameter tree once a loss (``cast_tree``). Make one a
+    loss, after the last update of those parameters."""
+    if dtype is None:
+        return lambda name, *args: nets[name](*args)
+    params = {k: cast_params(nets[k], dtype) for k in names}
+    return lambda name, *args: functional_call(nets[name], params[name], args)
 
 
 def f32(x: torch.Tensor) -> torch.Tensor:
