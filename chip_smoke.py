@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the vst_torch port's paths once on one NVIDIA GPU and check them.
 
-    python3 chip_smoke.py    # from the repository root
+    python3 chip_smoke.py                               # every phase, from the repository root
+    python3 chip_smoke.py build kernel datagen raft_train  # only the phases named
 
 Phases, one JSON line each; any failure raises and the exit code is not 0:
 
@@ -65,7 +66,7 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
    relative, every gradient in f64 ≤ 1e-3 relative in L2; the f32
    gradients' difference recorded); VGG16 and FastStyleNet forward and
    backward at 16×3×256×256 on cuDNN and on PyTorch's own convolutions;
-   `vst_torch.cli train-faststyle` for each method at 256², batch 16, 20
+   `vst_torch.cli train-faststyle` for each method at 256², batch 16, 12
    steps from the device cache over a 64-sample FC2-layout corpus written to
    a temporary directory (device step by CUDA events, median after 3
    warm-up steps; images/s; peak memory; every loss finite); Johnson on one
@@ -84,7 +85,8 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
    below λ = 0, corr_lookup launched); torch.profiler over one full-size
    obst.run in float32 and in bfloat16 (the device's busy share).
 15. fc2_metrics: `vst_torch.cli eval-fc2` at 256² on 4 synthetic batches of
-   4: --family obst (λ 0 and 2000), --family faststyle --method johnson
+   4: --family obst (λ 0 and 2000, --iters-pyr 10 10 10, run as 20 closure
+   calls a level), --family faststyle --method johnson
    (--num-outs 3) and --method ruder; TCL / FID / LPIPS means and the
    seconds split into the metric nets, FID's host math and the rest
    (stylizing); InceptionV3 activations and one LPIPS value on the card
@@ -103,8 +105,8 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
    card against the CPU (losses f32 ≤ 1e-4 relative, gradients f64 ≤ 1e-8
    relative in L2 per parameter); `train-stargan2` at 256², batch 8, 4
    domains, AdvCon, 10 iterations from the device cache over a 32-sample
-   synthetic styled corpus (`pack_styled_corpus`) in f32 and in bf16 (iteration median after 3
-   warm-up iterations, images/s, peak memory, every loss finite), one f32
+   corpus (`generate_fc2_corpus`, procedural) in f32 and in bf16
+   (iteration median after 3 warm-up iterations, images/s, peak memory, every loss finite), one f32
    iteration split by CUDA events into its D steps (R1), G steps and EMA,
    and one under torch.profiler (busy share); `train-stargan` at 128²,
    batch 16, 10 iterations (2 G steps) from a 128² corpus, the same numbers; `vst_torch.cli
@@ -131,10 +133,37 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
    at 432×1024, 420 launches), after the driver at 64×96 on the card
    against the CPU (TCL ≤ 1e-4 relative).
 
-Phases 5–17 each drive one path with the kernels' launch counts set to 0
-just before it and read just after; a kernel of the path that was never
-launched fails the run. Then the card's name and power limit (nvidia-smi),
-the kernels line and the result line. Float32 with TF32 off. Weights and
+18. datagen: `vst_torch.cli datagen-corpus` at 256², batch 16, 16 pairs
+   and 3 domains (96 styled images a styler), with `--styler procedural`
+   and `--styler gatys` (the seeded VGG, [30, 25, 20], f32): seconds an
+   image, the tree's layout, one batch read through the device cache and
+   CycleGANFC2Dataset; one OBST batch of 16 timed by CUDA events and under
+   torch.profiler (busy share); `datagen-fc2` (64 samples at 256²) and
+   `datagen-styled` (4 samples at 64²); `precompute_lt_flow` with RAFT (20
+   iterations) at 64×96 through the kernel against the plain lookup (flow
+   ≤ 1e-3 px, masks equal), then on the 8-frame 432×1024 clip of phase 5
+   through the kernel (seconds a frame, exactly 2 × 20 × 3 = 120 launches).
+   The datagen commands launch no kernel.
+19. raft_train: flow_sequence_loss over RAFT(train_mode=True), full and
+   small, at 2×3×64×64 with 3 iterations on the card against the CPU (loss
+   in f32 through the kernel ≤ 1e-4 relative; every gradient in f64, the
+   plain lookup on both sides, ≤ 1e-8 relative in L2 per parameter); RAFT's
+   chairs stage (batch 10, crop 368×496, 12 iterations, γ = 0.8, AdamW lr
+   4e-4, weight decay 1e-4, gradient clip 1.0) on batches of FlyingChairs
+   with its stage's augmentor over a 384×512 `data/*.ppm` + `*.flo` tree of
+   affine-motion pairs: 13 steps (the median of the last 10 by CUDA events,
+   images/s, peak memory, every loss finite, exactly 12 launches and 12
+   plain backward passes of the lookup a step), the lookup's forward and
+   backward at that shape, one step under torch.profiler; RAFT small (12
+   iterations, radius 3) at 4×3×432×1024 through the kernel after the same
+   net at 64×96 against the plain lookup (≤ 1e-3 px), 12 launches a call.
+
+Phase names on the command line run only those phases (all of them
+without one). Phases 5–19 each drive one path with the kernels' launch
+counts set to 0 just before it and read just after; a kernel of the path
+that was never launched fails the run. Then each phase's seconds, the
+card's name and power limit (nvidia-smi), the kernels line (a kernel whose
+phases did not run has null numbers) and the result line. Float32 with TF32 off. Weights and
 inputs are random, from seeds. Needs one CUDA device; exits 1 without one.
 """
 
@@ -162,8 +191,7 @@ from vst_torch.cli.__main__ import parser as cli_parser
 from vst_torch.core.roofline import PEAK_BYTES_PER_S, PEAK_F32_OPS_PER_S
 from vst_torch.core.timing import chain_ms, cold_pool, graph_ms, host_ms, windows_ms
 from vst_torch.data.device_cache import DeviceFC2Cache
-from vst_torch.data.fc2 import pack_styled_corpus
-from vst_torch.data.loader import pack_fc2_npy
+from vst_torch.data.datagen import generate_fc2_corpus, pack_fc2_npy, precompute_lt_flow
 from vst_torch.data.styles import load_style_images
 from vst_torch.eval.drivers import (evaluate_sintel_cyclegan, evaluate_sintel_faststyle,
                                     evaluate_sintel_ruder,
@@ -172,6 +200,7 @@ from vst_torch.eval.drivers import (evaluate_sintel_cyclegan, evaluate_sintel_fa
 from vst_torch.eval.sintel import SintelVideo, make_tcl_program
 from vst_torch.eval.video import write_png
 from vst_torch.flow.corr import build_pyramid, lookup_pyramid
+from vst_torch.flow.datasets import fetch_flow_datasets, flow_sequence_loss
 from vst_torch.flow.raft import RAFT, coords_grid
 from vst_torch.kernels import _nvcc
 from vst_torch.kernels import corr_lookup as corr_lookup_module
@@ -197,7 +226,8 @@ from vst_torch.probes import bisect_im2col, bisect_kernel_cost, bisect_mxu
 from vst_torch.train.faststyle import FastStyleTrainer
 from vst_torch.train.cyclegan import CycleGANConfig, CycleGANTrainer, cyclegan_batch
 from vst_torch.train.parity import (cyclegan_steps, grad_errors, max_loss_rel_err, param_errors,
-                                    stargan2_steps, stargan_steps, training_step)
+                                    raft_sequence_step, raft_train_inputs, stargan2_steps,
+                                    stargan_steps, training_step)
 from vst_torch.train.stargan2 import StarGAN2Config, StarGAN2Trainer
 from vst_torch.train.registry import FASTSTYLE_METHODS, method_net, select_method
 
@@ -229,7 +259,7 @@ KERNEL_SOURCES = ("corr_lookup", "pad_conv3x3", "gemm_rate")
 OPS_PER_OUTPUT = 17
 TRAIN_HW = (256, 256)  # train-faststyle at the README's size and batch
 TRAIN_BATCH = 16
-TRAIN_STEPS = 20
+TRAIN_STEPS = 12  # cut from 20 for the full run's time (PERF.md §6)
 TRAIN_CORPUS = 64
 LEARN_STEPS = 30
 HOST_STEPS = 6
@@ -241,6 +271,7 @@ METRIC_RTOL = 1e-4  # InceptionV3 activations and LPIPS, card against CPU, f32
 OBST_FRAMES = 6  # TCL-LT needs a frame past the offset of 5
 FC2_HW = (256, 256)
 FC2_SEED = 14
+FC2_OBST_ITERS = (10, 10, 10)  # cut from [50, 40, 30] for the full run's time (PERF.md §6)
 GAN_LOSS_RTOL = 1e-4  # card against CPU, f32
 GAN_GRAD_RTOL = 1e-8  # card against CPU, f64, L2 per parameter
 SG2_HW, SG2_BATCH = (256, 256), 8  # the README's StarGAN v2 configuration, 4 domains
@@ -366,10 +397,11 @@ def to_nchw(frames, dev):
     return torch.from_numpy(np.ascontiguousarray(frames.transpose(0, 3, 1, 2))).to(dev)
 
 
-def seeded_raft(iters, dev, seed=0, lookup=corr_lookup, encoder_dtype=None, update_dtype=None):
+def seeded_raft(iters, dev, seed=0, lookup=corr_lookup, encoder_dtype=None, update_dtype=None,
+                small=False, train_mode=False):
     torch.manual_seed(seed)
     return RAFT(iters=iters, lookup=lookup, encoder_dtype=encoder_dtype,
-                update_dtype=update_dtype).to(dev).eval()
+                update_dtype=update_dtype, small=small, train_mode=train_mode).to(dev).eval()
 
 
 def seeded_style_net(dev, seed=0, method="johnson"):
@@ -400,8 +432,10 @@ def phase_build():
 
 # (name, B, H, W, C, radius, levels, coords): the Sintel tcl2 shape, a ragged
 # one, the CPU tests' shape, the CycleGAN trainers' (4×3×256²: Q = 4096,
-# level 0 32²), RAFT small's radius, 1 and 2 levels, and flows that put every
-# window outside its map ("outside", all zeros)
+# level 0 32²), RAFT small's radius (its 4×432×1024 call), 1 and 2 levels,
+# flows that put every window outside its map ("outside", all zeros), RAFT's
+# chairs stage (10×368×496: levels 46×62, 23×31, 11×15, 5×7) and
+# precompute_lt_flow's one pair at 432×1024
 LOOKUP_SHAPES = (("sintel_tcl2", 4, 54, 128, 256, 4, 4, "flow"),
                  ("ragged_55", 4, 55, 128, 256, 4, 4, "flow"),
                  ("cpu_test", 1, 8, 16, 32, 4, 4, "flow"),
@@ -409,7 +443,9 @@ LOOKUP_SHAPES = (("sintel_tcl2", 4, 54, 128, 256, 4, 4, "flow"),
                  ("radius_3", 4, 54, 128, 256, 3, 4, "flow"),
                  ("levels_1", 2, 55, 128, 64, 4, 1, "flow"),
                  ("levels_2", 2, 55, 128, 64, 3, 2, "flow"),
-                 ("outside", 2, 54, 128, 64, 4, 4, "outside"))
+                 ("outside", 2, 54, 128, 64, 4, 4, "outside"),
+                 ("chairs_368x496", 10, 46, 62, 256, 4, 4, "flow"),
+                 ("lt_flow_432x1024", 1, 54, 128, 256, 4, 4, "flow"))
 
 
 def phase_kernel(dev):
@@ -770,8 +806,10 @@ def phase_stylize_video(dev):
 
 
 def reset_counts() -> None:
-    """Every kernel's launch count to 0, just before a path is driven."""
+    """Every kernel's launch count to 0, just before a path is driven (and
+    the lookup's backward passes, which launch no kernel)."""
     corr_lookup.launches = 0
+    corr_lookup.plain_backwards = 0
     pad_conv3x3.launches.clear()
     gemm_rate.launches.clear()
 
@@ -837,8 +875,11 @@ def phase_trunk_conv(dev):
             for k, rec in zip(keys, records)}, errs
 
 
-def phase_kernel_cost(dev, weighted_errs):
-    """``weighted_errs``: phase 6's max |Δ| of full and mxu_only."""
+def phase_kernel_cost(dev, weighted_errs=None):
+    """``weighted_errs``: phase 9's max |Δ| of full and mxu_only, checked here
+    when phase 9 did not run."""
+    if weighted_errs is None:
+        weighted_errs = check_pad_conv3x3(dev, ("full", "mxu_only"), CONV_SHAPES)
     errs = {**weighted_errs, **check_pad_conv3x3(dev, CONV_EXACT_MODES, CONV_SHAPES)}
     reset_counts()
     records = bisect_kernel_cost.run(dev)
@@ -961,24 +1002,37 @@ def conv_split(dev):
     return out
 
 
-def profile_steps(trainer, batch, steps=2):
-    """torch.profiler over ``steps`` training steps: the wall per step, the
-    kernels' device time per step (the device's busy share of the wall)
-    and the 12 kernels that take the most."""
+def device_activity(prof, per=1):
+    """(name, ms, count) of every device activity that ``prof`` recorded
+    (kernels, copies, fills), divided by ``per``, largest first. Read from
+    the profiler's raw events: ``key_averages()`` builds a Python event for
+    each one first, which takes seconds for tens of thousands of launches."""
     from torch.autograd import DeviceType
+
+    agg = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA and not e.is_user_annotation():
+            ms, n = agg.get(e.name(), (0.0, 0))
+            agg[e.name()] = (ms + e.duration_ns() / 1e6, n + 1)
+    return sorted(((name, ms / per, n / per) for name, (ms, n) in agg.items()),
+                  key=lambda k: -k[1])
+
+
+def profile_steps(trainer, batch, steps=2):
+    """torch.profiler (the CUDA activity only) over ``steps`` training steps:
+    the wall per step, the kernels' device time per step (the device's busy share of the wall)
+    and the 12 kernels that take the most."""
     from torch.profiler import ProfilerActivity, profile
 
     trainer.train_step(batch)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(steps):
             trainer.train_step(batch)
         torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3 / steps
-    kernels = sorted(((e.key, e.self_device_time_total / 1e3 / steps, e.count / steps)
-                      for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
-                     key=lambda k: -k[1])
+    kernels = device_activity(prof, steps)
     device_ms = sum(ms for _, ms, _ in kernels)
     return {"wall_ms_per_step": wall_ms, "kernel_ms_per_step": device_ms,
             "busy_share": device_ms / wall_ms,
@@ -1075,33 +1129,49 @@ def obst_closure_loss(device, hw=(64, 64), seed=1):
         return obst._loss(x, obst.style_targets[0], feats, warp_img, mask, 2000.0).item()
 
 
-def profile_call(fn):
-    """One call of ``fn`` after a warm-up call, timed by the host clock
-    between two synchronize() calls (``wall_ms``), then one more under
-    torch.profiler: the kernels' device ms, the device's busy share of the
-    unprofiled wall (the profiler's own cost, tens of µs a launch, inflates
-    the profiled wall, ``profiled_wall_ms``), the launches and the 8 kernels
-    that take the most."""
-    from torch.autograd import DeviceType
+def profile_call(fn, walls=3):
+    """``fn``, which each caller has run before at these shapes: ``walls``
+    calls timed by the host clock between two synchronize() calls (their
+    median ``wall_ms`` and range), then one more under torch.profiler,
+    recording the CUDA activity only (the CPU ops' events made most of the
+    profiler's cost: PERF.md §6): the kernels' device ms, the launches and
+    the 8 kernels that take the most.
+
+    ``kernel_over_wall`` is the kernels' ms over the median unprofiled wall,
+    with its range over the walls. It sets one run's device time against
+    other runs' walls, and CUPTI's timestamps add to each kernel's time, so
+    it leans high: a ratio over 1 is the reading's error (one stream is never
+    more than fully busy), and then ``busy_share`` and ``host_idle_share``
+    are None. ``busy_share_floor``, the kernels' ms over the wall of the
+    profiled call itself, is a floor: the profiler's own cost, µs to tens of
+    µs a launch, lengthens that wall.
+    """
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
     torch.cuda.synchronize()
+    wall = []
+    for _ in range(walls):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall.append((time.perf_counter() - t0) * 1e3)
     t0 = time.perf_counter()
-    fn()
-    torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) * 1e3
-    t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
     profiled_wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
-                      for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
-                     key=lambda k: -k[1])
+    kernels = device_activity(prof)
     device_ms = sum(ms for _, ms, _ in kernels)
-    return {"wall_ms": wall_ms, "profiled_wall_ms": profiled_wall_ms, "kernel_ms": device_ms,
-            "busy_share": device_ms / wall_ms, "kernel_launches": sum(n for _, _, n in kernels),
+    wall_ms = float(np.median(wall))
+    ratio = device_ms / wall_ms
+    return {"wall_ms": wall_ms, "wall_ms_range": [min(wall), max(wall)],
+            "profiled_wall_ms": profiled_wall_ms, "kernel_ms": device_ms,
+            "kernel_over_wall": ratio,
+            "kernel_over_wall_range": [device_ms / max(wall), device_ms / min(wall)],
+            "busy_share": ratio if ratio <= 1.0 else None,
+            "host_idle_share": 1.0 - ratio if ratio <= 1.0 else None,
+            "busy_share_floor": device_ms / profiled_wall_ms,
+            "kernel_launches": sum(n for _, _, n in kernels),
             "top_kernels": [{"name": name[:100], "ms": ms, "calls": n}
                             for name, ms, n in kernels[:8]]}
 
@@ -1265,7 +1335,7 @@ def phase_fc2_metrics(dev):
     # seed 14: every task of the 4 batches has 2 or more samples, so FID takes
     # the sample-subspace path (a pile of one takes a 2048² sqrtm on the host)
     argv = ["eval-fc2", "--hw", *map(str, FC2_HW), "--batch-size", "4", "--seed", str(FC2_SEED)]
-    runs = {"obst": ["--family", "obst", "--iters-pyr", "50", "40", "30"],
+    runs = {"obst": ["--family", "obst", "--iters-pyr", *map(str, FC2_OBST_ITERS)],
             "johnson": ["--family", "faststyle", "--method", "johnson", "--num-outs", "3"],
             "ruder": ["--family", "faststyle", "--method", "ruder"]}
     reset_counts()
@@ -1374,7 +1444,7 @@ def stargan2_split(dev, corpus):
         spans.wrap(f"{name}_ms", fn)()
     split = {name: ms for name, (ms,) in spans.device_ms().items()}
     profile = profile_call(lambda: trainer.train_iteration(batch))
-    return {**split, "profile": {**profile, "host_idle_share": 1.0 - profile["busy_share"]}}
+    return {**split, "profile": profile}
 
 
 def phase_stargan(dev):
@@ -1408,7 +1478,7 @@ def phase_stargan(dev):
         t0 = time.perf_counter()
         corpora = {hw: os.path.join(tmp, f"styled_{hw[0]}") for hw in (SG2_HW, SG1_HW)}
         for hw, corpus in corpora.items():
-            pack_styled_corpus(corpus, GAN_CORPUS, hw, num_dom=4)
+            generate_fc2_corpus(corpus, GAN_CORPUS, hw=hw, styler="procedural", device=dev)
         record["seconds"]["corpus_write"] = time.perf_counter() - t0
         common = ["--device-cache", str(GAN_CORPUS), "--steps", str(GAN_ITERS), "--log-every",
                   "5", "--ckpt-every", str(10 * GAN_ITERS)]
@@ -1496,7 +1566,7 @@ def cyclegan_split(dev, corpus, variant, compute_dtype=None):
         in_g = spans_ms["raft_ms"][2 if variant == "mogan" else 0:]
         split["g_step_without_raft_ms"] = split["g_step_ms"] - sum(in_g)
     profile = profile_call(lambda: trainer.e_step(batch))
-    return {**split, "profile": {**profile, "host_idle_share": 1.0 - profile["busy_share"]}}
+    return {**split, "profile": profile}
 
 
 def phase_cyclegan(dev):
@@ -1513,7 +1583,7 @@ def phase_cyclegan(dev):
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
         corpus = os.path.join(tmp, "styled")
-        pack_styled_corpus(corpus, GAN_CORPUS, CG_HW, num_dom=2)
+        generate_fc2_corpus(corpus, GAN_CORPUS, hw=CG_HW, styler="procedural", device=dev)
         record["seconds"]["corpus_write"] = time.perf_counter() - t0
         common = ["--hw", *map(str, CG_HW), "--batch-size", str(CG_BATCH), "--steps",
                   str(GAN_ITERS), "--log-every", "5", "--ckpt-every", str(10 * GAN_ITERS),
@@ -1573,6 +1643,369 @@ def phase_cyclegan(dev):
     return launches
 
 
+DG_HW = (256, 256)  # datagen-corpus at the corpus's own size, vst's OBST batch
+DG_PAIRS, DG_BATCH, DG_DOMAINS = 16, 16, 3
+DG_ITERS = (30, 25, 20)
+LT_OFFSET = 5
+# The seeded RAFT's flows (mean |flow| 3.4–4.2 px, no relation between the two
+# directions) fail the forward-backward check everywhere, so every mask would
+# be 0. Scaled by 0.1 to the sub-pixel motion of a near-static clip, about a
+# fifth of the pixels pass (0.15–0.20 on the CPU at 64×96 and 432×1024), so
+# the masks that are compared and checked are not constant.
+LT_FLOW_SCALE = 0.1
+
+
+def lt_raft_apply(raft):
+    return lambda a, b: tuple(LT_FLOW_SCALE * f for f in raft(255.0 * a, 255.0 * b))
+
+
+def partial_masks(out, what):
+    """The mean of the (1, H, W, 3) outputs' masks, which must be binary and
+    neither all 0 nor all 1."""
+    masks = np.stack([o[..., 2] for o in out])
+    mean = float(masks.mean())
+    if not set(np.unique(masks)) <= {0.0, 1.0} or not 0.0 < mean < 1.0:
+        raise AssertionError(f"{what}: the masks are not binary or are constant (mean {mean})")
+    return mean
+RT_BATCH, RT_CROP, RT_ITERS = 10, (368, 496), 12  # RAFT's chairs stage (train_standard.sh)
+RT_LR, RT_WDECAY, RT_CLIP, RT_GAMMA = 4e-4, 1e-4, 1.0, 0.8
+RT_STEPS, RT_WARMUP = 10, 3
+CHAIRS_HW, CHAIRS_PAIRS = (384, 512), 16  # FlyingChairs' own frame size
+RT_LOSS_RTOL = 1e-4  # card against CPU, f32
+RT_GRAD_RTOL = 1e-8  # card against CPU, f64, L2 per parameter
+SMALL_RADIUS = 3
+
+
+def corpus_layout(root, n, hw, domains):
+    """The corpus tree that the trainers read: (1, H, W, 9) finite .npy
+    files and 256² JPEGs for every domain of both frames."""
+    from PIL import Image
+
+    npys = sorted(os.listdir(os.path.join(root, "DATAFiles")))
+    if npys != [f"{i:07d}.npy" for i in range(n)]:
+        raise AssertionError(f"corpus DATAFiles: {npys}")
+    for name in npys:
+        x = np.load(os.path.join(root, "DATAFiles", name))
+        if x.shape != (1, *hw, 9) or not np.isfinite(x).all():
+            raise AssertionError(f"corpus {name}: {x.shape} or not finite")
+    for tree, suffix in (("styled-files", ".jpg"), ("styled-files3", "_2.jpg")):
+        for k in range(domains + 1):
+            names = sorted(os.listdir(os.path.join(root, tree, f"style{k}")))
+            if names != [f"{i:07d}{suffix}" for i in range(n)]:
+                raise AssertionError(f"corpus {tree}/style{k}: {names}")
+            with Image.open(os.path.join(root, tree, f"style{k}", names[-1])) as im:
+                if im.size != hw[::-1] or im.mode != "RGB":
+                    raise AssertionError(f"corpus {tree}/style{k}: {im.size} {im.mode}")
+
+
+def corpus_reads(root, dev):
+    """One batch of the corpus through what the trainers read it with: the
+    device cache (StarGAN, CycleGAN) and CycleGANFC2Dataset."""
+    from vst_torch.data.device_cache import DeviceStyledCache
+    from vst_torch.data.fc2 import CycleGANFC2Dataset
+
+    batch = DeviceStyledCache(root, num_dom=DG_DOMAINS + 1, seed=1, device=dev).sample(4)
+    shapes = {k: list(v.shape) for k, v in batch.items()}
+    if not all(torch.isfinite(v.float()).all() for v in batch.values()):
+        raise AssertionError("device cache batch not finite")
+    cg = next(CycleGANFC2Dataset(root, sid=1, with_flow=True).epoch(4, seed=0))
+    if not all(np.isfinite(v).all() for v in cg.values()):
+        raise AssertionError("CycleGANFC2Dataset batch not finite")
+    return {"device_cache": shapes, "cyclegan_fc2": {k: list(v.shape) for k, v in cg.items()}}
+
+
+def obst_batch(dev, root):
+    """One OBST batch of ``DG_BATCH`` corpus frames at 256² as datagen-corpus
+    runs it (style 0, [30, 25, 20]) through profile_call: its seconds (the
+    median of 3 calls by the host clock between two synchronize() calls, the
+    styled images copied back) and the device's busy share."""
+    from vst_torch.data.datagen import _stylize_batch
+
+    names = sorted(os.listdir(os.path.join(root, "DATAFiles")))[:DG_BATCH]
+    frames = np.stack([np.load(os.path.join(root, "DATAFiles", n))[0, ..., :3] for n in names])
+    batch = to_nchw(frames, dev)
+    pyr = ((DG_HW[0] // 4, DG_HW[1] // 4), (DG_HW[0] // 2, DG_HW[1] // 2), DG_HW)
+    obst = OBST(max_iters=DG_ITERS, device=dev)
+    obst.set_style(load_style_images(size=256)[0], pyr)
+    out = {}
+    torch.cuda.reset_peak_memory_stats()
+    profile = profile_call(lambda: out.update(rgb=_stylize_batch(obst, batch, pyr, 0.0)))
+    if out["rgb"].shape != (DG_BATCH, *DG_HW, 3) or not np.isfinite(out["rgb"]).all():
+        raise AssertionError(f"OBST batch {out['rgb'].shape} not finite")
+    return {"s_per_batch": profile["wall_ms"] / 1e3, "batch": DG_BATCH,
+            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+            "profile": profile}
+
+
+def lt_flow_check(dev):
+    """precompute_lt_flow on an 8-frame 64×96 clip with RAFT (20 iterations,
+    flows scaled by LT_FLOW_SCALE) through the kernel and through the plain
+    lookup, same weights: flows within FLOW_ATOL_PX, masks equal and not
+    constant."""
+    clip = synthetic_clip(8, (64, 96), seed=4)
+    outs = []
+    for lookup in (corr_lookup, lookup_pyramid):
+        raft = seeded_raft(20, dev, seed=4, lookup=lookup)
+        outs.append(precompute_lt_flow(clip, lt_raft_apply(raft), offset=LT_OFFSET, device=dev))
+    mask_mean = partial_masks(outs[1], "precompute_lt_flow at 64×96")
+    dflow = max(np.abs(a[..., :2] - b[..., :2]).max() for a, b in zip(*outs))
+    if dflow > FLOW_ATOL_PX or not all(np.array_equal(a[..., 2], b[..., 2]) for a, b in zip(*outs)):
+        raise AssertionError(f"precompute_lt_flow kernel vs plain: {dflow} px or masks differ")
+    return {"clip": [8, 64, 96], "flow_scale": LT_FLOW_SCALE, "max_abs_dflow_px": float(dflow),
+            "mask_mean": mask_mean}
+
+
+def phase_datagen(dev):
+    """datagen-corpus (both stylers), datagen-fc2, datagen-styled; one OBST
+    batch timed and profiled; precompute_lt_flow through RAFT and the kernel."""
+    record = {"phase": "datagen", "seconds": {}, "corpus": {}}
+    n_styled = DG_PAIRS * 2 * DG_DOMAINS
+    with tempfile.TemporaryDirectory() as tmp:
+        reset_counts()
+        for styler in ("procedural", "gatys"):
+            root = os.path.join(tmp, styler)
+            t0 = time.perf_counter()
+            cli_main(["datagen-corpus", "--n-samples", str(DG_PAIRS), "--hw", *map(str, DG_HW),
+                      "--batch-size", str(DG_BATCH), "--styler", styler,
+                      "--iters", *map(str, DG_ITERS), "--out-dir", root])
+            wall = time.perf_counter() - t0
+            corpus_layout(root, DG_PAIRS, DG_HW, DG_DOMAINS)
+            record["corpus"][styler] = {"wall_s": wall, "styled_images": n_styled,
+                                        "s_per_styled_image": wall / n_styled,
+                                        "reads": corpus_reads(root, dev)}
+            record["seconds"][f"corpus_{styler}"] = wall
+        t0 = time.perf_counter()
+        record["corpus"]["gatys"]["obst_batch"] = obst_batch(dev, os.path.join(tmp, "gatys"))
+        record["seconds"]["obst_batch"] = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        fc2 = os.path.join(tmp, "fc2")
+        cli_main(["datagen-fc2", "--n-samples", "64", "--hw", *map(str, DG_HW), "--out-dir", fc2])
+        got = DeviceFC2Cache(fc2, device=dev).sample(4)
+        record["fc2"] = {"files": len(os.listdir(fc2)),
+                         "batch": {k: list(v.shape) for k, v in got.items()}}
+        styled = os.path.join(tmp, "styled")
+        cli_main(["datagen-styled", "--n-samples", "4", "--hw", "64", "64", "--out-dir", styled])
+        record["styled"] = {d: len(os.listdir(os.path.join(styled, d)))
+                            for d in sorted(os.listdir(styled))}
+        if record["fc2"]["files"] != 64 or record["styled"] != {f"style{k}": 4 for k in range(4)}:
+            raise AssertionError(f"datagen-fc2 / datagen-styled wrote {record['fc2']}, "
+                                 f"{record['styled']}")
+        record["seconds"]["fc2_and_styled"] = time.perf_counter() - t0
+        launches = kernel_launches()
+        if any(launches.values()):
+            raise AssertionError(f"the datagen commands launched a kernel: {launches}")
+
+        t0 = time.perf_counter()
+        record["lt_flow_small_check"] = lt_flow_check(dev)
+        raft = seeded_raft(20, dev)
+        clip = synthetic_clip(8, CLIP_HW, seed=3)
+        raft(*(to_nchw(clip[:1], dev) * 255.0,) * 2)  # warm
+        reset_counts()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out = precompute_lt_flow(clip, lt_raft_apply(raft), out_dir=os.path.join(tmp, "lt"),
+                                 offset=LT_OFFSET, device=dev)
+        wall = time.perf_counter() - t1
+        launches = corr_lookup.launches
+        want = 2 * 20 * (len(clip) - LT_OFFSET)
+        if launches != want or len(out) != len(clip) - LT_OFFSET:
+            raise AssertionError(f"precompute_lt_flow: {launches} launches, want {want}")
+        if not all(o.shape == (1, *CLIP_HW, 3) and np.isfinite(o).all() for o in out):
+            raise AssertionError("precompute_lt_flow: output not finite / of shape")
+        record["lt_flow"] = {"clip": [len(clip), *CLIP_HW], "raft_iters": 20, "frames": len(out),
+                             "flow_scale": LT_FLOW_SCALE,
+                             "mask_mean": partial_masks(out, "precompute_lt_flow at 432×1024"),
+                             "s_per_frame": wall / len(out), "corr_lookup_launches": launches,
+                             "files": sorted(os.listdir(os.path.join(tmp, "lt")))}
+        record["seconds"]["lt_flow"] = time.perf_counter() - t0
+    emit(record)
+    return {"precompute_lt_flow": launches}
+
+
+def chairs_tree(root):
+    """A FlyingChairs-layout tree (``data/*_img1.ppm``, ``*_img2.ppm``,
+    ``*_flow.flo``) of affine-motion pairs at 384×512, the forward flow of
+    each pair exact."""
+    from PIL import Image
+
+    from vst_torch.data.synthetic import MARGIN, AffineMotionGenerator, _texture
+    from vst_torch.flow.io import write_flo
+
+    os.makedirs(os.path.join(root, "data"))
+    for i in range(CHAIRS_PAIRS):
+        gen = AffineMotionGenerator(crop_hw=CHAIRS_HW, seed=i + 1)
+        rng = np.random.RandomState(i)
+        frames, _, _ = gen.generate(_texture(rng, (CHAIRS_HW[0] + MARGIN, CHAIRS_HW[1] + MARGIN)),
+                                    n_frames=2)
+        for k in (0, 1):
+            Image.fromarray(np.round(frames[k] * 255).astype(np.uint8)).save(
+                os.path.join(root, "data", f"{i:05d}_img{k + 1}.ppm"))
+        write_flo(os.path.join(root, "data", f"{i:05d}_flow.flo"), gen.pairwise_flows(0, 1)[0])
+
+
+def flow_batches(dataset, n_batches, dev):
+    """``n_batches`` batches of ``RT_BATCH`` samples drawn in order (the
+    augmentor's generator advances) on the device: NCHW images [0, 255],
+    flow (B, 2, H, W), valid (B, H, W)."""
+    out, i = [], 0
+    for _ in range(n_batches):
+        samples = [dataset[(i + j) % len(dataset)] for j in range(RT_BATCH)]
+        i += RT_BATCH
+        img1, img2, flow, valid = (np.stack(x) for x in zip(*samples))
+        out.append((to_nchw(img1, dev), to_nchw(img2, dev), to_nchw(flow, dev),
+                    torch.from_numpy(valid).to(dev)))
+    return out
+
+
+def lookup_fwd_bwd_ms(dev):
+    """The lookup at the chairs stage's shape (B = 10, 46×62 queries, 4
+    levels, radius 4): the kernel's forward held against the plain version
+    on these inputs (KERNEL_ERR), then timed, and the backward (the plain
+    version's recompute and autograd), each by CUDA events over 10 calls."""
+    B, h, w = RT_BATCH, RT_CROP[0] // 8, RT_CROP[1] // 8
+    g = torch.Generator(device=dev).manual_seed(9)
+    f1 = torch.randn(B, 256, h, w, generator=g, device=dev)
+    f2 = torch.randn(B, 256, h, w, generator=g, device=dev)
+    pyramid = [t.detach().requires_grad_() for t in build_pyramid(f1, f2, LEVELS)]
+    coords = (coords_grid(B, h, w, device=dev)
+              + 4.0 * torch.randn(B, 2, h, w, generator=g, device=dev)).contiguous()
+    out = corr_lookup(pyramid, coords, RADIUS)
+    with torch.no_grad():
+        err = (out - lookup_pyramid(pyramid, coords, RADIUS)).abs().max().item()
+    if err != KERNEL_ERR or not math.isfinite(err):
+        raise AssertionError(f"corr_lookup vs plain at the chairs stage: {err} != {KERNEL_ERR}")
+    upstream = torch.randn_like(out)
+    fwd = time_ms(lambda: corr_lookup(pyramid, coords, RADIUS), 10)
+    bwd = time_ms(lambda: torch.autograd.grad(corr_lookup(pyramid, coords, RADIUS), pyramid,
+                                              upstream), 10) - fwd
+    return {"shape": [B, h, w], "max_abs_err": err, "fwd_ms": fwd, "bwd_ms": bwd}
+
+
+def raft_train_card_vs_cpu(dev):
+    """flow_sequence_loss over RAFT(train_mode=True) at 64×64, 3 iterations,
+    batch 2: the loss in f32 (the kernel on the card, the plain lookup on the
+    CPU) and every gradient in f64 (the plain lookup on both: the kernel is
+    f32), card against CPU."""
+    inputs = raft_train_inputs((64, 64), batch=2, seed=5)
+    out = {}
+    for small in (False, True):
+        fast = seeded_raft(3, "cpu", seed=5, small=small, train_mode=True)
+        plain = seeded_raft(3, "cpu", seed=5, small=small, train_mode=True, lookup=lookup_pyramid)
+        want, _ = raft_sequence_step(fast, inputs, "cpu", torch.float32)
+        got, _ = raft_sequence_step(fast, inputs, dev, torch.float32)
+        _, want_g = raft_sequence_step(plain, inputs, "cpu", torch.float64)
+        _, got_g = raft_sequence_step(plain, inputs, dev, torch.float64)
+        loss_rel = abs(got - want) / abs(want)
+        grad_rel, _ = grad_errors(got_g, want_g)
+        if not (loss_rel <= RT_LOSS_RTOL and grad_rel <= RT_GRAD_RTOL):
+            raise AssertionError(f"RAFT sequence loss (small={small}) card vs CPU: loss "
+                                 f"{loss_rel} > {RT_LOSS_RTOL} or f64 gradient {grad_rel} > "
+                                 f"{RT_GRAD_RTOL}")
+        out["small" if small else "full"] = {"loss": want, "loss_rel_err": loss_rel,
+                                             "f64_grad_max_rel_err": grad_rel}
+    return out
+
+
+def raft_small_eval(dev):
+    """RAFT small (12 iterations, radius 3) in evaluation at 4×3×432×1024
+    through the kernel, after the same net at 2×3×64×96 against the plain
+    lookup (≤ FLOW_ATOL_PX); time a call, its launches."""
+    small = synthetic_clip(3, (64, 96), seed=1) * 255.0
+    s1, s2 = to_nchw(small[[0, 1]], dev), to_nchw(small[[1, 2]], dev)
+    fast = seeded_raft(RT_ITERS, dev, seed=6, small=True)
+    plain = seeded_raft(RT_ITERS, dev, seed=6, small=True, lookup=lookup_pyramid)
+    clip = synthetic_clip(5, CLIP_HW) * 255.0
+    i1, i2 = to_nchw(clip[[0, 1, 2, 3]], dev), to_nchw(clip[[1, 2, 3, 4]], dev)
+    with torch.no_grad():
+        dflow = max((a - b).abs().max().item() for a, b in zip(fast(s1, s2), plain(s1, s2)))
+        if dflow > FLOW_ATOL_PX:
+            raise AssertionError(f"RAFT small kernel vs plain lookup: {dflow} px")
+        fast(i1, i2)
+        reset_counts()
+        _, up = fast(i1, i2)
+        torch.cuda.synchronize()
+        launches = corr_lookup.launches
+        if launches != RT_ITERS or up.shape != (4, 2, *CLIP_HW) or not torch.isfinite(up).all():
+            raise AssertionError(f"RAFT small: {launches} launches (want {RT_ITERS}) or flow "
+                                 "not finite / of shape")
+        ms = time_ms(lambda: fast(i1, i2), 3, 1)
+    return {"shape": [4, 3, *CLIP_HW], "iters": RT_ITERS, "radius": SMALL_RADIUS,
+            "ms_per_call": ms, "corr_lookup_launches": launches,
+            "small_check": {"shape": [2, 3, 64, 96], "max_abs_dflow_px": dflow}}
+
+
+def phase_raft_train(dev):
+    """RAFT's training path at its chairs stage; small RAFT in evaluation."""
+    record = {"phase": "raft_train", "seconds": {}}
+    t0 = time.perf_counter()
+    record["card_vs_cpu"] = raft_train_card_vs_cpu(dev)
+    record["seconds"]["card_vs_cpu"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        chairs_tree(tmp)
+        data = fetch_flow_datasets("chairs", {"chairs": tmp}, crop_size=RT_CROP, seed=0)
+        batches = flow_batches(data, RT_WARMUP + RT_STEPS, dev)
+    record["seconds"]["data"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    raft = seeded_raft(RT_ITERS, dev, train_mode=True)
+    opt = torch.optim.AdamW(raft.parameters(), lr=RT_LR, weight_decay=RT_WDECAY, eps=1e-8)
+
+    def step(batch):
+        img1, img2, flow, valid = batch
+        opt.zero_grad(set_to_none=True)
+        _, preds = raft(img1, img2)
+        loss = flow_sequence_loss(preds, flow, valid, gamma=RT_GAMMA)
+        loss.backward()
+        torch.nn.utils.clip_grad_norm_(raft.parameters(), RT_CLIP)
+        opt.step()
+        return loss.detach()
+
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    losses, ms = [], []
+    for batch in batches:
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        losses.append(step(batch))
+        end.record()
+        ms.append((start, end))
+    torch.cuda.synchronize()
+    step_ms = [a.elapsed_time(b) for a, b in ms]
+    losses = torch.stack(losses).tolist()
+    launches, backwards = corr_lookup.launches, corr_lookup.plain_backwards
+    want = RT_ITERS * len(batches)
+    if launches != want or backwards != want:
+        raise AssertionError(f"raft_train: corr_lookup {launches} launches and {backwards} "
+                             f"backward passes, want {want} each")
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"raft_train: a loss is not finite: {losses}")
+    median = float(np.median(step_ms[RT_WARMUP:]))
+    record["train"] = {
+        "batch": RT_BATCH, "crop": list(RT_CROP), "iters": RT_ITERS, "gamma": RT_GAMMA,
+        "lr": RT_LR, "weight_decay": RT_WDECAY, "clip": RT_CLIP, "steps": len(batches),
+        "warmup": RT_WARMUP, "step_ms": step_ms, "step_ms_median": median,
+        "images_per_s": RT_BATCH / median * 1e3,
+        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30, "losses": losses,
+        "corr_lookup_launches": launches, "corr_lookup_plain_backwards": backwards}
+    lookup = lookup_fwd_bwd_ms(dev)
+    record["lookup_at_train_shape"] = {
+        **lookup, "per_step_fwd_ms": RT_ITERS * lookup["fwd_ms"],
+        "per_step_bwd_ms": RT_ITERS * lookup["bwd_ms"],
+        "bwd_share_of_step": RT_ITERS * lookup["bwd_ms"] / median}
+    profile = profile_call(lambda: step(batches[0]))
+    record["profile"] = profile
+    record["seconds"]["train"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    record["small_eval"] = raft_small_eval(dev)
+    record["seconds"]["small_eval"] = time.perf_counter() - t0
+    emit(record)
+    return {"raft_train": launches, "raft_small_eval": record["small_eval"]["corr_lookup_launches"]}
+
+
 def kernel_entries(name, source, replaces, measured):
     """The kernels line's entries of one kernel, one per variant."""
     return [{"name": f"{name}_{variant}", "route": "cuda", "source": source,
@@ -1592,7 +2025,25 @@ def per_conv(measured):
             "library_ms": measured.get("library_ms_per_conv")}
 
 
-def main() -> int:
+PHASES = ("build", "kernel", "stylize", "raft", "main_path", "eval_sintel", "raft_bf16",
+          "stylize_video", "trunk_conv", "kernel_cost", "gemm_rate", "bench", "train_faststyle",
+          "obst", "fc2_metrics", "stargan", "cyclegan", "datagen", "raft_train")
+
+
+def null_entries(name, source, replaces, variants):
+    """The kernels line's entries of a kernel whose phase did not run: every
+    measured value null."""
+    return kernel_entries(name, source, replaces, {v: {
+        k: None for k in ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")}
+        for v in variants})
+
+
+def main(argv=None) -> int:
+    names = list(sys.argv[1:] if argv is None else argv) or list(PHASES)
+    unknown = [n for n in names if n not in PHASES]
+    if unknown:
+        print(f"chip_smoke: unknown phase {unknown}; phases: {' '.join(PHASES)}", file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing runs on the CPU", file=sys.stderr)
         return 1
@@ -1600,49 +2051,75 @@ def main() -> int:
     set_f32_precision()
     emit({"phase": "start", "torch": torch.__version__, "cuda": torch.version.cuda,
           "cudnn": torch.backends.cudnn.version(), "device": torch.cuda.get_device_name(0),
-          "tf32": False})
+          "tf32": False, "phases": names})
 
-    phase_build()
-    max_err, timing = phase_kernel(dev)
-    phase_stylize(dev)
-    phase_raft(dev)
-    launches = phase_main_path(dev)
-    ruder_launches = phase_eval_sintel(dev)
-    bf16_launches = phase_raft_bf16(dev)
-    phase_stylize_video(dev)
-    trunk, weighted_errs = phase_trunk_conv(dev)
-    cost = phase_kernel_cost(dev, weighted_errs)
-    gemm = phase_gemm_rate(dev)
-    phase_bench(dev)
-    phase_train_faststyle(dev)
-    obst_launches = phase_obst(dev)
-    phase_fc2_metrics(dev)
-    gan_launches = phase_stargan(dev)
-    cyclegan_launches = phase_cyclegan(dev)
+    seconds = {}
+
+    def run(name, fn, *args):
+        """Phase ``name`` if it was asked for (None otherwise), timed."""
+        if name not in names:
+            return None
+        t0 = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = time.perf_counter() - t0
+        return out
+
+    run("build", phase_build)
+    max_err, timing = run("kernel", phase_kernel, dev) or (None, {})
+    run("stylize", phase_stylize, dev)
+    run("raft", phase_raft, dev)
+    launches = run("main_path", phase_main_path, dev)
+    by_path = {"main_path": launches,
+               "eval_sintel_ruder": run("eval_sintel", phase_eval_sintel, dev)}
+    by_path.update({f"raft_{k}": v for k, v in (run("raft_bf16", phase_raft_bf16, dev)
+                                                 or {}).items()})
+    run("stylize_video", phase_stylize_video, dev)
+    trunk, weighted_errs = run("trunk_conv", phase_trunk_conv, dev) or (None, None)
+    cost = run("kernel_cost", phase_kernel_cost, dev, weighted_errs)
+    gemm = run("gemm_rate", phase_gemm_rate, dev)
+    run("bench", phase_bench, dev)
+    run("train_faststyle", phase_train_faststyle, dev)
+    by_path["eval_obst"] = run("obst", phase_obst, dev)
+    run("fc2_metrics", phase_fc2_metrics, dev)
+    by_path.update({f"eval_sintel_{k}": v for k, v in (run("stargan", phase_stargan, dev)
+                                                        or {}).items()})
+    by_path.update(run("cyclegan", phase_cyclegan, dev) or {})
+    by_path.update(run("datagen", phase_datagen, dev) or {})
+    by_path.update(run("raft_train", phase_raft_train, dev) or {})
+    emit({"phase_seconds": seconds, "total_s": sum(seconds.values())})
 
     smi = subprocess.run(["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], check=True, capture_output=True, text=True)
     print(smi.stdout.strip(), flush=True)
     conv_source = "vst_torch/csrc/pad_conv3x3.cu"
+    dtypes = [dtype_name(d) for d in DTYPES]
+    trunk_entries = (kernel_entries("pad_conv3x3", conv_source, "scripts/bisect_im2col.py:20",
+                                    {f"full_{dt}": per_conv(m) for (_, dt), m in trunk.items()})
+                     if trunk else null_entries("pad_conv3x3", conv_source,
+                                                "scripts/bisect_im2col.py:20",
+                                                [f"full_{dt}" for dt in dtypes]))
+    cost_entries = (kernel_entries("pad_conv3x3", conv_source, "scripts/bisect_kernel_cost.py:15",
+                                   {f"{mode}_{dt}": per_conv(m) for (mode, dt), m in cost.items()
+                                    if mode != "full"})
+                    if cost else null_entries("pad_conv3x3", conv_source,
+                                              "scripts/bisect_kernel_cost.py:15",
+                                              [f"{m}_{dt}" for dt in dtypes for m in MODES
+                                               if m != "full"]))
+    gemm_entries = (kernel_entries("gemm_rate", "vst_torch/csrc/gemm_rate.cu",
+                                   "scripts/bisect_mxu.py:15", gemm)
+                    if gemm else null_entries("gemm_rate", "vst_torch/csrc/gemm_rate.cu",
+                                              "scripts/bisect_mxu.py:15",
+                                              [f"{dt}_K{K}_N128" for dt in dtypes
+                                               for K in (128, 1152)]))
     emit({"kernels": [
         {"name": "corr_lookup", "route": "cuda", "source": "vst_torch/csrc/corr_lookup.cu",
          "replaces": "vst/kernels/pallas_corr.py:87", "launches": launches,
-         "max_abs_err": max_err, "ms": timing["kernel_ms"], "plain_ms": timing["plain_ms"],
-         "bound_ms": timing["bound_ms"], "bound_by": timing["bound_by"],
-         "library_ms": timing["library_ms"], "device_ms": timing["device_ms"],
-         "host_ms": timing["host_ms"],
-         "launches_by_path": {"main_path": launches, "eval_sintel_ruder": ruder_launches,
-                              **{f"raft_{k}": v for k, v in bf16_launches.items()},
-                              "eval_obst": obst_launches,
-                              **{f"eval_sintel_{k}": v for k, v in gan_launches.items()},
-                              **cyclegan_launches}},
-        *kernel_entries("pad_conv3x3", conv_source, "scripts/bisect_im2col.py:20",
-                        {f"full_{dt}": per_conv(m) for (_, dt), m in trunk.items()}),
-        *kernel_entries("pad_conv3x3", conv_source, "scripts/bisect_kernel_cost.py:15",
-                        {f"{mode}_{dt}": per_conv(m) for (mode, dt), m in cost.items()
-                         if mode != "full"}),
-        *kernel_entries("gemm_rate", "vst_torch/csrc/gemm_rate.cu", "scripts/bisect_mxu.py:15",
-                        gemm),
+         "max_abs_err": max_err, "ms": timing.get("kernel_ms"), "plain_ms": timing.get("plain_ms"),
+         "bound_ms": timing.get("bound_ms"), "bound_by": timing.get("bound_by"),
+         "library_ms": timing.get("library_ms"), "device_ms": timing.get("device_ms"),
+         "host_ms": timing.get("host_ms"),
+         "launches_by_path": {k: v for k, v in by_path.items() if v is not None}},
+        *trunk_entries, *cost_entries, *gemm_entries,
     ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

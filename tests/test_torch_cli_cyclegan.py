@@ -22,7 +22,7 @@ from vst.eval.sintel import evaluate_videos as jevaluate_videos
 from vst.models.cyclegan import ResnetGenerator as JResnetGenerator
 from vst_torch.cli.__main__ import cyclegan_eval_generators, main, parser, synthetic_clip
 from vst_torch.convert import cyclegan_generator_state_dict_from_jax
-from vst_torch.data.fc2 import pack_styled_corpus
+from vst_torch.data.datagen import generate_fc2_corpus
 
 RTOL_TCL = 1e-4
 HW = {"cyclegan": 32, "cyclegan_con": 32, "mogan": 64, "congan": 64}
@@ -71,7 +71,7 @@ def test_train_cyclegan_writes_its_nets_and_line(variant, tmp_path, capsys):
 @pytest.mark.parametrize("source", ["device_cache", "corpus"])
 def test_train_cyclegan_reads_a_corpus(source, tmp_path, capsys):
     root = tmp_path / "styled"
-    pack_styled_corpus(str(root), 4, hw=(32, 32), num_dom=3, seed=1)
+    generate_fc2_corpus(str(root), 4, hw=(32, 32), seed=1, styler="procedural", device="cpu")
     extra = ["--data-dir", str(root), "--sid", "2"]
     train("cyclegan_con", tmp_path / "out", *extra,
           *(["--device-cache", "4"] if source == "device_cache" else []))

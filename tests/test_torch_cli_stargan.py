@@ -11,7 +11,7 @@ import torch
 
 from torch_gan_parity import torch_threads  # noqa: F401
 from vst_torch.cli.__main__ import main
-from vst_torch.data.fc2 import pack_styled_corpus
+from vst_torch.data.datagen import generate_fc2_corpus
 from vst_torch.models.stargan import Discriminator, Generator
 from vst_torch.train.stargan2 import StarGAN2Config, nets_from_state_dicts
 
@@ -27,7 +27,7 @@ SG1 = ["--hw", "32", "32", "--batch-size", "2", "--conv-dim", "8", "--repeat-num
 @pytest.fixture(scope="module")
 def corpus(tmp_path_factory):
     root = str(tmp_path_factory.mktemp("styled"))
-    pack_styled_corpus(root, 5, hw=(32, 32), num_dom=3, seed=1)
+    generate_fc2_corpus(root, 5, hw=(32, 32), seed=1, styler="procedural", device="cpu")
     return root
 
 

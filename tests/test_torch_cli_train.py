@@ -21,7 +21,7 @@ from vst.train.registry import select_method as vst_select_method
 from vst_torch.cli.__main__ import CKPT_NAME, load_state, parser
 from vst_torch.cli.__main__ import main as cli_main
 from vst_torch.convert import faststyle_state_dict_from_jax
-from vst_torch.data.loader import pack_fc2_npy
+from vst_torch.data.datagen import pack_fc2_npy
 from vst_torch.data.synthetic import synthetic_batch
 from vst_torch.train import experiments
 from vst_torch.train.registry import FASTSTYLE_METHODS, method_net

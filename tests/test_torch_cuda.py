@@ -7,7 +7,10 @@ metric nets (float32) on the card against the CPU; each step of a StarGAN v2
 iteration and StarGAN v1's D and G steps on the card against the CPU, and
 the styled device cache on the card against the CPU; each CycleGAN
 variant's E step (and MoGAN's M step) on the card against the CPU, MoGAN's
-and ConGAN's with RAFT through the kernel. Marked ``cuda``; they skip where there
+and ConGAN's with RAFT through the kernel; RAFT small and train mode through
+the kernel against the plain lookup, RAFT's sequence loss and its gradients
+on the card against the CPU, and ``precompute_lt_flow`` through the kernel
+against the plain lookup. Marked ``cuda``; they skip where there
 is no CUDA device. On a machine with an H100 (``--noconftest``: the suite's
 conftest needs jax, which these tests do not):
 
@@ -19,7 +22,6 @@ import pytest
 import torch
 
 from vst_torch.data.device_cache import DeviceFC2Cache, DeviceStyledCache
-from vst_torch.data.fc2 import pack_styled_corpus
 from vst_torch.flow.corr import build_pyramid, lookup_pyramid
 from vst_torch.flow.raft import RAFT, coords_grid
 from vst_torch.kernels.corr_lookup import corr_lookup
@@ -30,8 +32,10 @@ from vst_torch.metrics.lpips import LPIPS
 from vst_torch.models.gatys import OBST
 from vst_torch.probes.bisect_im2col import trunk_inputs
 from vst_torch.probes.bisect_mxu import SHAPES as GEMM_SHAPES
+from vst_torch.data.datagen import generate_fc2_corpus, precompute_lt_flow
 from vst_torch.train.parity import (cyclegan_steps, grad_errors, max_loss_rel_err,
-                                    param_errors, stargan2_steps, stargan_steps, training_step)
+                                    param_errors, raft_sequence_step, raft_train_inputs,
+                                    stargan2_steps, stargan_steps, training_step)
 
 pytestmark = pytest.mark.cuda
 
@@ -333,7 +337,8 @@ def test_gan_steps_on_the_card_match_the_cpu(dev, steps):
 
 
 def test_styled_cache_on_the_card_is_the_cpus(dev, tmp_path):
-    pack_styled_corpus(str(tmp_path), 5, hw=(32, 48), num_dom=3, seed=2)
+    generate_fc2_corpus(str(tmp_path), 5, hw=(32, 48), seed=2, styler="procedural",
+                        device="cpu")
     caches = [DeviceStyledCache(str(tmp_path), num_dom=3, seed=4, device=d) for d in ("cpu", dev)]
     for sampler, args in (("sample", (4,)), ("sample_multidomain", (4,)),
                           ("sample_cyclegan", (3, 2))):
@@ -365,3 +370,63 @@ def test_cyclegan_steps_on_the_card_match_the_cpu(dev, variant):
             runs.append(cyclegan_steps(variant, device, torch.float32, raft=raft, hw=(64, 64)))
         for step in runs[1]:
             assert max_loss_rel_err(runs[0][step][0], runs[1][step][0]) <= GAN_LOSS_RTOL, step
+
+
+@pytest.mark.parametrize("small,train_mode", [(True, False), (True, True), (False, True)],
+                         ids=["small", "small_train_mode", "full_train_mode"])
+def test_raft_variants_through_the_kernel_match_plain_lookup(dev, small, train_mode):
+    """Flows within 1e-3 px; 3 launches a call (radius 3 for the small net)."""
+    rng = np.random.RandomState(7)
+    i1, i2 = (torch.from_numpy(rng.rand(2, 3, 64, 96).astype(np.float32) * 255).to(dev)
+              for _ in range(2))
+    torch.manual_seed(7)
+    fast = RAFT(iters=3, small=small, train_mode=train_mode).to(dev).eval()
+    plain = RAFT(iters=3, small=small, train_mode=train_mode, lookup=lookup_pyramid).to(dev)
+    plain.load_state_dict(fast.state_dict())
+    before = corr_lookup.launches
+    with torch.no_grad():
+        got, want = fast(i1, i2), plain(i1, i2)
+    torch.cuda.synchronize()
+    assert corr_lookup.launches == before + 3
+    assert got[1].shape == ((3, 2, 2, 64, 96) if train_mode else (2, 2, 64, 96))
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, atol=1e-3, rtol=0)
+
+
+@pytest.mark.parametrize("small", [False, True], ids=["full", "small"])
+def test_raft_sequence_loss_on_the_card_matches_the_cpu(dev, small):
+    """The loss in f32 through the kernel within 1e-4 relative; every
+    gradient in f64 (the plain lookup on both sides) within 1e-8 relative in
+    L2; 3 launches and 3 backward passes of the lookup on the card."""
+    inputs = raft_train_inputs((64, 64), batch=2, seed=5)
+    torch.manual_seed(5)
+    net = RAFT(iters=3, small=small, train_mode=True)
+    plain = RAFT(iters=3, small=small, train_mode=True, lookup=lookup_pyramid)
+    plain.load_state_dict(net.state_dict())
+    launches, backwards = corr_lookup.launches, corr_lookup.plain_backwards
+    got, _ = raft_sequence_step(net, inputs, dev, torch.float32)
+    assert corr_lookup.launches - launches == 3
+    assert corr_lookup.plain_backwards - backwards == 3
+    want, _ = raft_sequence_step(net, inputs, "cpu", torch.float32)
+    assert abs(got - want) <= 1e-4 * abs(want)
+    _, got_g = raft_sequence_step(plain, inputs, dev, torch.float64)
+    _, want_g = raft_sequence_step(plain, inputs, "cpu", torch.float64)
+    worst, _ = grad_errors(got_g, want_g)
+    assert worst <= 1e-8, worst
+
+
+def test_precompute_lt_flow_through_the_kernel_matches_plain_lookup(dev):
+    """The random net's flows × 0.1 pass the forward-backward check in part
+    (an all-0 mask would compare nothing)."""
+    frames = np.random.RandomState(8).rand(7, 64, 96, 3).astype(np.float32)
+    outs = []
+    for lookup in (corr_lookup, lookup_pyramid):
+        torch.manual_seed(8)
+        raft = RAFT(iters=4, lookup=lookup).to(dev).eval()
+        outs.append(precompute_lt_flow(
+            frames, lambda a, b: tuple(0.1 * f for f in raft(255 * a, 255 * b)), device=dev))
+    for a, b in zip(*outs):
+        assert a.shape == (1, 64, 96, 3)
+        assert 0.0 < b[..., 2].mean() < 1.0
+        np.testing.assert_allclose(a[..., :2], b[..., :2], atol=1e-3, rtol=0)
+        np.testing.assert_array_equal(a[..., 2], b[..., 2])

@@ -1,6 +1,6 @@
 """The CycleGAN family's data reader and evaluation dispatch against vst's
 on the CPU: ``CycleGANFC2Dataset`` on a written styled tree
-(``pack_styled_corpus``: 5 names, 3 styles, 32²) gives vst's order and
+(``generate_fc2_corpus``, procedural: 5 names, 32²) gives vst's order and
 arrays, exactly (both read JPEGs through PIL); ``cyclegan_stylize_fn``
 over three models gives vst's outputs within 1e-5 absolute, the style
 index clipped into range."""
@@ -18,7 +18,8 @@ from vst.data.fc2 import CycleGANFC2Dataset as JCycleGANFC2Dataset
 from vst.eval.drivers import cyclegan_stylize_fn as jcyclegan_stylize_fn
 from vst.models.cyclegan import ResnetGenerator as JResnetGenerator
 from vst_torch.convert import cyclegan_generator_state_dict_from_jax
-from vst_torch.data.fc2 import CycleGANFC2Dataset, pack_styled_corpus
+from vst_torch.data.datagen import generate_fc2_corpus
+from vst_torch.data.fc2 import CycleGANFC2Dataset
 from vst_torch.eval.drivers import cyclegan_stylize_fn
 from vst_torch.models.cyclegan import ResnetGenerator
 from vst_torch.train.cyclegan import cyclegan_batch
@@ -29,7 +30,7 @@ ATOL = 1e-5
 @pytest.fixture(scope="module")
 def corpus(tmp_path_factory):
     root = str(tmp_path_factory.mktemp("styled"))
-    pack_styled_corpus(root, 5, hw=(32, 32), num_dom=3, seed=2)
+    generate_fc2_corpus(root, 5, hw=(32, 32), seed=2, styler="procedural", device="cpu")
     return root
 
 

@@ -92,3 +92,10 @@ def test_the_module_level_check_sees_through_classes_and_ifs(tmp_path):
     src.write_text("import os\nif os:\n    import cv2\nclass A:\n    import imageio\n"
                    "def f():\n    import cv2\n")
     assert sorted(mod for _, mod in _module_level_roots(src)) == ["cv2", "imageio", "os"]
+
+
+def test_datagen_and_flow_training_modules_are_checked():
+    names = {str(p.relative_to(ROOT)) for p in SOURCES}
+    assert {f"vst_torch/{m}.py" for m in (
+        "flow/io", "flow/datasets", "flow/raft", "data/sintel", "data/datagen", "data/synthetic",
+        "ops/flowtools", "train/parity", "cli/__main__")} <= names

@@ -1,5 +1,5 @@
 """The GAN trainers' data against vst's, bit for bit, on a synthetic corpus
-written to ``tmp_path`` by ``vst_torch.data.fc2.pack_styled_corpus``:
+written to ``tmp_path`` by ``vst_torch.data.datagen.generate_fc2_corpus`` (procedural styler):
 ``DeviceStyledCache``'s three samplers (the same numpy draws, the same
 uint8 / float16 tables, the same dequantization; the port's NCHW against
 vst's NHWC) and ``FC2Fetcher`` (batches and latents)."""
@@ -15,7 +15,8 @@ from vst.data.fc2 import DatasetFC2 as JDatasetFC2
 from vst.data.fc2 import FC2Fetcher as JFC2Fetcher
 from vst.data.fc2 import FC2Loader as JFC2Loader
 from vst_torch.data.device_cache import DeviceStyledCache
-from vst_torch.data.fc2 import DatasetFC2, FC2Fetcher, FC2Loader, pack_styled_corpus
+from vst_torch.data.datagen import generate_fc2_corpus
+from vst_torch.data.fc2 import DatasetFC2, FC2Fetcher, FC2Loader
 
 HW = (24, 32)
 NUM_DOM = 3
@@ -24,7 +25,7 @@ NUM_DOM = 3
 @pytest.fixture(scope="module")
 def corpus(tmp_path_factory):
     root = str(tmp_path_factory.mktemp("styled"))
-    pack_styled_corpus(root, 7, hw=HW, num_dom=NUM_DOM, seed=3)
+    generate_fc2_corpus(root, 7, hw=HW, seed=3, styler="procedural", device="cpu")
     return root
 
 
@@ -47,7 +48,8 @@ def assert_same(got, want):
 
 def test_corpus_layout(corpus):
     for tree in ("styled-files", "styled-files3"):
-        assert sorted(os.listdir(os.path.join(corpus, tree))) == [f"style{d}" for d in range(3)]
+        # the content and the corpus's 3 styles; the readers take the first NUM_DOM
+        assert sorted(os.listdir(os.path.join(corpus, tree))) == [f"style{d}" for d in range(4)]
     assert len(os.listdir(os.path.join(corpus, "styled-files3", "style2"))) == 7
     d = np.load(os.path.join(corpus, "DATAFiles", "0000004.npy"))
     assert d.shape == (1, *HW, 9) and d.dtype == np.float32

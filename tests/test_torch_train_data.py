@@ -24,6 +24,7 @@ from vst.data import styles as jstyles
 from vst.data import synthetic as jsynthetic
 from vst_torch.core.metrics import MetricsLogger
 from vst_torch.data import device_cache, loader, native_loader, styles, synthetic
+from vst_torch.data.datagen import pack_fc2_npy
 
 FRAME_ATOL = 7.4e-6
 
@@ -103,9 +104,9 @@ def test_load_npy_batch_falls_back_per_file(tmp_path):
 
 
 def test_fc2_packer_writes_what_the_dataset_reads(tmp_path):
-    loader.pack_fc2_npy(str(tmp_path), 5, hw=(16, 24), seed=2, chunk=2)
-    want = [synthetic.synthetic_batch(n, hw=(16, 24), seed=2 + s) for s, n in ((0, 2), (2, 2),
-                                                                             (4, 1))]
+    """Sample i is drawn from seed + i, as vst's packer draws it."""
+    pack_fc2_npy(str(tmp_path), 5, hw=(16, 24), seed=2)
+    want = [synthetic.synthetic_batch(1, hw=(16, 24), seed=2 + i) for i in range(5)]
     got = next(loader.NpyDirDataset(str(tmp_path), 5).epoch(shuffle=False))
     for k in ("imgs", "masks", "flows"):
         np.testing.assert_array_equal(got[k], np.concatenate([w[k] for w in want]))

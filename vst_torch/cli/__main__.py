@@ -21,6 +21,10 @@ family's training and evaluation, and the benchmarks.
     python -m vst_torch.cli eval-fc2 [--family stargan2|stargan|obst|faststyle]
                                      [--mode latent|reference] [--method johnson|…|ruder]
                                      [--hw 256 256] [--data-dir DIR]
+    python -m vst_torch.cli datagen-fc2 [--n-samples 64] [--hw 256 256] [--out-dir DIR]
+    python -m vst_torch.cli datagen-styled [--n-samples 8] [--hw 64 64] [--iters 50 40 30]
+    python -m vst_torch.cli datagen-corpus [--n-samples 512] [--hw 256 256] [--batch-size 16]
+                                           [--styler gatys|procedural] [--iters 30 25 20]
     python -m vst_torch.cli bench
     python -m vst_torch.cli bench-raft [--hw 436 1024] [--iters 5] [--out-dir DIR]
 
@@ -138,7 +142,20 @@ for ``f32`` and ``bf16_full_pad64``; and each variant's flow against
 ``f32``'s. It prints one JSON line and writes it to
 ``<out-dir>/raft_timing.json``. Every variant gets the same weights.
 
-Not ported yet: the other subcommands of vst's CLI (``ROADMAP.md`` §1).
+``datagen-fc2`` writes ``--n-samples`` FC2 ``.npy`` files
+(``vst_torch.data.datagen.pack_fc2_npy``) to ``--out-dir``; ``datagen-styled``
+styles ``--n-samples`` texture crops with OBST (the seeded VGG) for each of
+the 3 styles into ``<out-dir>/style{k}``; ``datagen-corpus`` writes the
+corpus that the trainers' ``--data-dir`` reads (``DATAFiles``,
+``styled-files``, ``styled-files3``), styled by OBST in batches of
+``--batch-size`` on the device or, with ``--styler procedural``, by fixed
+pixelwise transforms on the host (no device, no weights).
+
+Every subcommand accepts vst's common flags (``--steps``, ``--batch-size``,
+``--log-every``, ``--ckpt-every``, ``--data-dir``, ``--device-cache``); one
+that a command does not read is ignored, and its help says so.
+
+Not ported yet: ``align-faces``, ``demo`` and ``demo-web`` (``ROADMAP.md`` §1).
 """
 
 from __future__ import annotations
@@ -159,6 +176,7 @@ from vst_torch.core.timing import windows_ms
 from vst_torch.data.device_cache import DeviceFC2Cache, DeviceStyledCache
 from vst_torch.data.fc2 import (CycleGANFC2Dataset, DatasetFC2, FC2Loader, synthetic_fc2_batches,
                                 train_eval_split)
+from vst_torch.data.datagen import generate_fc2_corpus, generate_styled_dataset, pack_fc2_npy
 from vst_torch.data.loader import NpyDirDataset
 from vst_torch.data.styles import load_style_images
 from vst_torch.data.synthetic import MARGIN, AffineMotionGenerator, _texture, synthetic_batch
@@ -1046,28 +1064,79 @@ def cmd_bench_raft(args) -> None:
     print(json.dumps(results))
 
 
-def _add_common(p, hw=(64, 64)) -> None:
-    """vst's common flags (``vst/cli/__main__.py:25-36``) that these commands
-    read; ``--device`` takes the place of vst's ``--platform``."""
-    p.add_argument("--device", default="cuda")
+def cmd_datagen_fc2(args) -> None:
+    pack_fc2_npy(args.out_dir, args.n_samples, hw=tuple(args.hw), seed=args.seed)
+    print(f"wrote {args.n_samples} tuples to {args.out_dir}")
+
+
+def cmd_datagen_styled(args) -> None:
+    device = _device(args)
+    set_f32_precision()
+    rng = np.random.RandomState(args.seed)
+    contents = [(f"{i:07d}", _texture(rng, (args.hw[0] + 32, args.hw[1] + 32)))
+                for i in range(args.n_samples)]
+    styles = load_style_images(args.style_dir, size=256)[:3]
+    generate_styled_dataset(contents, styles, args.out_dir,
+                            obst=OBST(max_iters=args.iters, device=device),
+                            pyr_shapes=((args.hw[0] // 4, args.hw[1] // 4),
+                                        (args.hw[0] // 2, args.hw[1] // 2), tuple(args.hw)),
+                            batch_size=args.batch_size, device=device)
+    print(f"styled {args.n_samples} images into {args.out_dir}")
+
+
+def cmd_datagen_corpus(args) -> None:
+    device = _device(args) if args.styler == "gatys" else torch.device("cpu")
+    set_f32_precision()
+    generate_fc2_corpus(args.out_dir, args.n_samples, hw=tuple(args.hw),
+                        style_dir=args.style_dir, iters=tuple(args.iters),
+                        batch_size=args.batch_size, seed=args.seed, styler=args.styler,
+                        device=device)
+    print(f"corpus of {args.n_samples} pairs × domains in {args.out_dir}")
+
+
+# vst's common flags besides --hw, --seed and --out-dir (vst/cli/__main__.py:25-44):
+# (flag, argparse keywords, help where a command reads it)
+_COMMON = (
+    ("--steps", {"type": int, "default": 100}, "iterations"),
+    ("--batch-size", {"type": int}, "batch size"),
+    ("--log-every", {"type": int, "default": 10}, "print the losses every N iterations"),
+    ("--ckpt-every", {"type": int, "default": 1000},
+     "write the checkpoints every N iterations and at the end"),
+    ("--data-dir", {"default": None}, "corpus directory; synthetic batches if omitted"),
+    ("--device-cache", {"type": int, "default": 0},
+     "upload N corpus samples to the device once (uint8 images and masks, float16 flows) "
+     "and draw every batch there; 0 = read each batch on the host"),
+)
+
+
+def _add_common(p, hw=(64, 64), batch_size: int = 4, reads=(), helps=None) -> None:
+    """vst's common flags (``vst/cli/__main__.py:25-44``) on a subcommand, so
+    that vst's command lines parse; ``--device`` takes the place of vst's
+    ``--platform``. ``reads`` names the flags of :data:`_COMMON` the command
+    reads, ``helps`` overrides their help; any other is accepted and ignored,
+    and its help says so."""
+    helps = helps or {}
+    p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     p.add_argument("--hw", type=int, nargs=2, default=hw)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--out-dir", default="runs/latest")
+    for flag, kw, text in _COMMON:
+        kw = dict(kw, default=batch_size) if flag == "--batch-size" else kw
+        if flag not in reads:
+            text = "accepted for vst's command lines; this command does not read it"
+        p.add_argument(flag, **kw, help=helps.get(flag, text))
+
+
+_TRAIN_FLAGS = ("--steps", "--batch-size", "--log-every", "--ckpt-every", "--data-dir",
+                "--device-cache")
 
 
 def _add_gan_common(p, hw, batch_size: int, ckpt_every: str) -> None:
-    """The GAN trainers' flags (vst's common ones, ``vst/cli/__main__.py:25-36``)."""
-    _add_common(p, hw=hw)
-    p.add_argument("--steps", type=int, default=100, help="iterations")
-    p.add_argument("--batch-size", type=int, default=batch_size)
-    p.add_argument("--log-every", type=int, default=10)
-    p.add_argument("--ckpt-every", type=int, default=1000, help=ckpt_every)
-    p.add_argument("--data-dir", default=None,
-                   help="corpus root (styled-files, styled-files3, DATAFiles); synthetic "
-                        "batches if omitted")
-    p.add_argument("--device-cache", type=int, default=0,
-                   help="upload N corpus names to the device once (uint8 images and masks, "
-                        "float16 flows) and draw every batch there")
+    """The GAN trainers' common flags: every one of vst's is read."""
+    _add_common(p, hw=hw, batch_size=batch_size, reads=_TRAIN_FLAGS, helps={
+        "--ckpt-every": ckpt_every,
+        "--data-dir": "corpus root (styled-files, styled-files3, DATAFiles); synthetic "
+                      "batches if omitted"})
 
 
 def parser() -> argparse.ArgumentParser:
@@ -1076,20 +1145,11 @@ def parser() -> argparse.ArgumentParser:
     sub = p.add_subparsers(dest="command", required=True)
 
     s = sub.add_parser("train-faststyle", help="Johnson/Dumoulin/Huang/ReCoNet/Ruder training")
-    _add_common(s)
-    s.add_argument("--steps", type=int, default=100)
-    s.add_argument("--batch-size", type=int, default=4)
-    s.add_argument("--log-every", type=int, default=10)
-    s.add_argument("--ckpt-every", type=int, default=1000,
-                   help=f"save the net's state_dict to <out-dir>/{CKPT_NAME} every N steps "
-                        "and at the end")
-    s.add_argument("--data-dir", default=None,
-                   help="FC2 DATAFiles dir ((1, H, W, 9) .npy per sample); synthetic "
-                        "batches if omitted")
-    s.add_argument("--device-cache", type=int, default=0,
-                   help="upload N corpus samples to the device once (uint8 images and "
-                        "masks, float16 flows) and draw every batch there; 0 = read each "
-                        "batch on the host")
+    _add_common(s, reads=_TRAIN_FLAGS, helps={
+        "--ckpt-every": f"save the net's state_dict to <out-dir>/{CKPT_NAME} every N steps "
+                        "and at the end",
+        "--data-dir": "FC2 DATAFiles dir ((1, H, W, 9) .npy per sample); synthetic "
+                      "batches if omitted"})
     s.add_argument("--method", default="johnson", choices=tuple(FASTSTYLE_METHODS))
     s.add_argument("--n-styles", type=int, default=1,
                    help="styles of one net; each step's style is drawn from "
@@ -1167,13 +1227,14 @@ def parser() -> argparse.ArgumentParser:
     s.set_defaults(fn=cmd_eval_sintel)
 
     s = sub.add_parser("stylize-video", help="offline batch video stylization")
-    _add_common(s)
-    s.add_argument("--batch-size", type=int, default=4)
+    _add_common(s, reads=("--batch-size",))
     s.add_argument("--source", default=None,
                    help="video file or frame dir (both read through cv2), or omit for "
                         "a synthetic clip")
     s.add_argument("--method", default="johnson", choices=tuple(FASTSTYLE_METHODS))
     s.add_argument("--n-styles", type=int, default=3)
+    s.add_argument("--style-dir", default=None,
+                   help="accepted for vst's command lines; stylizing reads no style image")
     s.add_argument("--ckpt-dir", default=None, help="a FastStyleNet state_dict file")
     s.add_argument("--sid", type=int, default=0)
     s.add_argument("--strength", type=float, default=1.0)
@@ -1203,7 +1264,9 @@ def parser() -> argparse.ArgumentParser:
     s.set_defaults(fn=cmd_eval_obst)
 
     s = sub.add_parser("eval-fc2", help="FC2 TCL / FID / LPIPS")
-    _add_common(s)
+    _add_common(s, reads=("--batch-size", "--data-dir"), helps={
+        "--data-dir": "FC2 corpus root (DATAFiles, styled-files, styled-files3); 4 "
+                      "synthetic batches if omitted"})
     s.add_argument("--family", default="stargan2",
                    choices=["stargan2", "stargan", "faststyle", "obst"])
     s.add_argument("--method", default="johnson", choices=tuple(FASTSTYLE_METHODS),
@@ -1218,10 +1281,9 @@ def parser() -> argparse.ArgumentParser:
     s.add_argument("--num-domains", type=int, default=4)
     s.add_argument("--num-outs", type=int, default=3,
                    help="fakes an eval sample (the reference uses 10)")
-    s.add_argument("--batch-size", type=int, default=4)
-    s.add_argument("--data-dir", default=None,
-                   help="FC2 corpus root (DATAFiles, styled-files, styled-files3); 4 "
-                        "synthetic batches if omitted")
+    s.add_argument("--lambda-tcl", type=float, default=0.0,
+                   help="accepted for vst's command lines (vst passes it to StarGAN2Config); "
+                        "evaluation reads no training weight")
     s.add_argument("--split", type=float, default=0.97)
     s.add_argument("--ckpt-dir", default=None,
                    help="a torch file with the reference's key names: the method's "
@@ -1231,6 +1293,30 @@ def parser() -> argparse.ArgumentParser:
                    help="Ruder's frame-0 bootstrap, a FastStyleNet state_dict file "
                         "(fs_ruder.py:25-34); a seeded net when the file is absent")
     s.set_defaults(fn=cmd_eval_fc2)
+
+    s = sub.add_parser("datagen-fc2", help="pack FC2-style .npy training tuples (affine motion)")
+    _add_common(s)
+    s.add_argument("--n-samples", type=int, default=64)
+    s.set_defaults(fn=cmd_datagen_fc2)
+
+    s = sub.add_parser("datagen-styled", help="the Gatys batch styler into the styled-files layout")
+    _add_common(s, reads=("--batch-size",), helps={"--batch-size": "images an OBST batch"})
+    s.add_argument("--n-samples", type=int, default=8)
+    s.add_argument("--style-dir", default=None)
+    s.add_argument("--iters", type=int, nargs="+", default=(50, 40, 30),
+                   help="L-BFGS iterations a pyramid level")
+    s.set_defaults(fn=cmd_datagen_styled)
+
+    s = sub.add_parser("datagen-corpus", help="the pseudo-paired FC2 corpus the trainers read")
+    _add_common(s, reads=("--batch-size",), helps={"--batch-size": "images an OBST batch"})
+    s.add_argument("--n-samples", type=int, default=512)
+    s.add_argument("--style-dir", default=None)
+    s.add_argument("--iters", type=int, nargs="+", default=(30, 25, 20),
+                   help="L-BFGS iterations a pyramid level")
+    s.add_argument("--styler", default="gatys", choices=["gatys", "procedural"],
+                   help="'procedural' = deterministic per-domain transforms (for environments "
+                        "without pretrained VGG weights)")
+    s.set_defaults(fn=cmd_datagen_corpus)
 
     s = sub.add_parser("bench", help="styled frames/s of FastStyleNet at 436x1024")
     s.set_defaults(fn=cmd_bench)

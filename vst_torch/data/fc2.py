@@ -210,35 +210,6 @@ def _stylize_np(img: np.ndarray, d: int) -> np.ndarray:
     return np.clip(out, 0, 1)
 
 
-def pack_styled_corpus(root: str, n_samples: int, hw=(64, 64), num_dom: int = 4,
-                       seed: int = 0, quality: int = 95) -> None:
-    """Write a synthetic corpus in the GAN trainers' layout under ``root``:
-    ``DATAFiles/<stem>.npy`` ((1, H, W, 9): frame 1 ⊕ frame 2 ⊕ mask ⊕
-    backward flow of an affine-motion pair), ``styled-files/style{d}/<stem>.jpg``
-    and ``styled-files3/style{d}/<stem>_2.jpg`` (the pair under domain d's
-    colour remap, domain 0 the content), JPEGs through PIL. What
-    ``DatasetFC2`` and ``DeviceStyledCache`` read; the repository has no
-    styled FC2 files."""
-    from PIL import Image
-
-    dirs = {d: [os.path.join(root, tree, f"style{d}") for tree in ("styled-files", "styled-files3")]
-            for d in range(num_dom)}
-    for path in [os.path.join(root, "DATAFiles")] + [p for ps in dirs.values() for p in ps]:
-        os.makedirs(path, exist_ok=True)
-    for i in range(n_samples):
-        b = synthetic_batch(1, hw=hw, n_frames=2, seed=seed + i)
-        f1, f2 = b["imgs"][0, 0], b["imgs"][0, 1]
-        stem = f"{i:07d}"
-        np.save(os.path.join(root, "DATAFiles", stem + ".npy"),
-                np.concatenate([f1, f2, b["masks"][0, 0], b["flows"][0, 0]], -1)[None]
-                .astype(np.float32))
-        for d, (sdir, tdir) in dirs.items():
-            for img, path in ((f1, os.path.join(sdir, stem + ".jpg")),
-                              (f2, os.path.join(tdir, stem + "_2.jpg"))):
-                u8 = np.round(_stylize_np(img, d) * 255).astype(np.uint8)
-                Image.fromarray(u8).save(path, quality=quality)
-
-
 def synthetic_fc2_batches(n_batches: int, batch_size: int, hw=(64, 64), num_dom: int = 4,
                           seed: int = 0):
     """The same batch dicts without files: per sample an affine-motion frame

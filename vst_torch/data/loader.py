@@ -101,20 +101,6 @@ class TupleNpyDataset(_Dir):
             }
 
 
-def pack_fc2_npy(out_dir: str, n_samples: int, hw=(64, 64), seed: int = 0,
-                 chunk: int = 16) -> None:
-    """Write FC2-format files ((1, H, W, 9) float32: img1 ⊕ img2 ⊕ mask ⊕
-    backward flow, what :class:`NpyDirDataset` reads) from the affine-motion
-    synthesizer, ``chunk`` samples a batch (seeds ``seed``, ``seed + chunk``, …)."""
-    os.makedirs(out_dir, exist_ok=True)
-    for start in range(0, n_samples, chunk):
-        b = synthetic_batch(min(chunk, n_samples - start), hw=hw, seed=seed + start)
-        for i in range(b["imgs"].shape[0]):
-            x = np.concatenate([b["imgs"][i, 0], b["imgs"][i, 1], b["masks"][i, 0],
-                                b["flows"][i, 0]], -1)[None]
-            np.save(os.path.join(out_dir, f"{start + i:07d}.npy"), x.astype(np.float32))
-
-
 def pack_tuple_npy(out_dir: str, n_samples: int, hw=(64, 64), n_frames: int = 3,
                    seed: int = 0) -> None:
     """Write HW2/CO2-format pickled tuples from the affine-motion

@@ -1,15 +1,15 @@
-"""Synthetic affine-motion clips (host numpy), port of the parts of
-``vst/data/synthetic.py`` that evaluation and training use:
-``AffineMotionGenerator`` (``generate``, ``pairwise_flows``), the ``_texture``
-content image and ``synthetic_batch``.
+"""Synthetic affine-motion clips (host numpy), port of
+``vst/data/synthetic.py``: ``AffineMotionGenerator`` (``generate``,
+``pairwise_flows``), the ``_texture`` and ``_scene`` content images and
+``synthetic_batch``.
 
 From a still image, a clip is made by random translate-scale-rotate (TSR)
 affine maps, each frame the previous one warped; the forward / backward flow
 between any two frames is exact, derived from the composed matrices, so the
 generator doubles as a motion oracle (``eval-sintel`` without Sintel).
 
-vst calls OpenCV for two steps; this module computes them in numpy, so the
-port needs no cv2:
+vst calls OpenCV for two steps of the generator; this module computes them
+in numpy, so the clips need no cv2:
 
 - ``cv2.getRotationMatrix2D`` is a closed formula (OpenCV's documentation):
   α = s·cos θ, β = s·sin θ, centre terms (1 − α)·cx − β·cy and
@@ -20,7 +20,9 @@ port needs no cv2:
   vst's; the frames agree with OpenCV 5.0's float32 path to rounding
   (``tests/test_torch_synthetic.py`` states the bound).
 
-``_scene`` (the shape scenes of ``datagen``) is not ported yet.
+``_scene``, the shape scenes of ``datagen-corpus``, draws OpenCV's
+anti-aliased circles, rectangles and lines, as vst does: it imports cv2
+inside the function.
 """
 
 from __future__ import annotations
@@ -208,6 +210,43 @@ def _texture(rng: np.random.RandomState, hw) -> np.ndarray:
     img -= img.min()
     img /= max(img.max(), 1e-6)
     return img
+
+
+def _scene(rng: np.random.RandomState, hw) -> np.ndarray:
+    """Structured content image (``vst/data/synthetic.py:178-219``): a
+    gradient background, 6–13 random anti-aliased shapes (circles,
+    rectangles, lines) and a mild multiplicative ``_texture``; edges and
+    flat regions, where ``_texture`` has neither. (H, W, 3) float32 [0, 1]."""
+    import cv2
+
+    h, w = hw
+    ys, xs = np.meshgrid(np.linspace(0, 1, h, dtype=f32), np.linspace(0, 1, w, dtype=f32),
+                         indexing="ij")
+    c0 = rng.uniform(0.1, 0.9, 3).astype(f32)
+    c1 = rng.uniform(0.1, 0.9, 3).astype(f32)
+    ang = rng.uniform(0, 2 * np.pi)
+    t = np.cos(ang) * xs + np.sin(ang) * ys
+    t = (t - t.min()) / max(t.max() - t.min(), 1e-6)
+    canvas = np.ascontiguousarray(c0[None, None] * (1 - t[..., None]) + c1[None, None] * t[..., None])
+    for _ in range(rng.randint(6, 14)):
+        color = tuple(float(v) for v in rng.uniform(0.05, 0.95, 3))
+        kind = rng.randint(3)
+        if kind == 0:
+            center = (int(rng.randint(0, w)), int(rng.randint(0, h)))
+            cv2.circle(canvas, center, int(rng.randint(8, max(min(h, w) // 4, 9))),
+                       color, -1, lineType=cv2.LINE_AA)
+        elif kind == 1:
+            x0, y0 = rng.randint(0, w), rng.randint(0, h)
+            x1 = np.clip(x0 + rng.randint(10, w // 2), 0, w - 1)
+            y1 = np.clip(y0 + rng.randint(10, h // 2), 0, h - 1)
+            cv2.rectangle(canvas, (int(x0), int(y0)), (int(x1), int(y1)), color, -1,
+                          lineType=cv2.LINE_AA)
+        else:
+            p0 = (int(rng.randint(0, w)), int(rng.randint(0, h)))
+            p1 = (int(rng.randint(0, w)), int(rng.randint(0, h)))
+            cv2.line(canvas, p0, p1, color, int(rng.randint(2, 8)), lineType=cv2.LINE_AA)
+    tex = _texture(rng, hw)
+    return np.clip(canvas * (0.85 + 0.3 * tex), 0.0, 1.0).astype(f32)
 
 
 def synthetic_batch(batch_size: int, hw=(256, 256), n_frames: int = 2, seed: int = 0):

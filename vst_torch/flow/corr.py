@@ -28,8 +28,9 @@ def build_pyramid(fmap1: torch.Tensor, fmap2: torch.Tensor,
     as the reference runs this volume at HIGHEST precision.
     """
     B, C, H, W = fmap1.shape
-    f1 = fmap1.float().reshape(B, C, H * W).transpose(1, 2)
-    f2 = fmap2.float().reshape(B, C, H * W)
+    acc = torch.promote_types(fmap1.dtype, torch.float32)  # float64 stays float64
+    f1 = fmap1.to(acc).reshape(B, C, H * W).transpose(1, 2)
+    f2 = fmap2.to(acc).reshape(B, C, H * W)
     corr = torch.matmul(f1, f2) / math.sqrt(C)
     corr = corr.reshape(B * H * W, 1, H, W)
     pyramid = [corr]

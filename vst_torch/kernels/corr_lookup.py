@@ -7,7 +7,8 @@
 CUDA tensors by launching the kernel, which it builds with ``nvcc`` at first
 use into ``vst_torch/_build/`` (listed in ``.gitignore``) and loads with
 ctypes. A build or launch that fails raises. ``corr_lookup.launches``
-counts kernel launches. The kernel is compiled for the radii of
+counts kernel launches; ``corr_lookup.plain_backwards`` counts the backward
+passes (below), which launch no kernel. The kernel is compiled for the radii of
 ``KERNEL_RADII`` (RAFT small uses 3, RAFT full 4); on CUDA another radius
 raises, on the CPU every radius is computed.
 
@@ -115,6 +116,7 @@ class _CorrLookup(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad):
+        corr_lookup.plain_backwards += 1
         coords, *pyramid = ctx.saved_tensors
         with torch.enable_grad():
             inputs = [t.detach().requires_grad_(need) for t, need in
@@ -142,3 +144,4 @@ def corr_lookup(pyramid: Sequence[torch.Tensor], coords: torch.Tensor,
 
 
 corr_lookup.launches = 0
+corr_lookup.plain_backwards = 0

@@ -1,11 +1,11 @@
-"""Forward-backward consistency mask (NCHW), port of ``vst/ops/flowtools.py``.
-
-``forward_interpolate`` (RAFT's warm start) is not on the TCL path and is
-not ported yet.
+"""Forward-backward consistency mask (NCHW) and RAFT's warm-start
+``forward_interpolate`` (on the host, through SciPy), port of
+``vst/ops/flowtools.py``.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -50,3 +50,32 @@ def fbc_mask(ff: torch.Tensor, bf: torch.Tensor, use_occlusion: bool = True) -> 
         occ = norm_wb > (0.01 * (norm_w + norm_b) + 0.5)
         mask = mask.masked_fill(occ, 0.0)
     return mask.masked_fill(mob, 0.0)[:, None]
+
+
+def forward_interpolate(flow: torch.Tensor) -> torch.Tensor:
+    """Forward-splat a flow field and re-interpolate it onto the regular
+    grid (``utils/raft/raft/utils/utils.py:26-54``), RAFT's warm start: each
+    pixel moves by its own vector, and the scattered (dx, dy) samples are
+    interpolated back onto the grid by nearest neighbour (SciPy
+    ``griddata``, on the host, as vst and the reference do: a scatter that
+    depends on the data). Points outside the open interval (0, W)×(0, H) are
+    dropped, the reference's test.
+
+    flow: (2, H, W), the reference's layout, on any device. Returns (2, H, W)
+    float32 on the same device."""
+    from scipy import interpolate
+
+    f = flow.detach().cpu().numpy().astype(np.float32)
+    dx, dy = f[0], f[1]
+    ht, wd = dx.shape
+    x0, y0 = np.meshgrid(np.arange(wd), np.arange(ht))
+    x1 = (x0 + dx).reshape(-1)
+    y1 = (y0 + dy).reshape(-1)
+    dxf = dx.reshape(-1)
+    dyf = dy.reshape(-1)
+    valid = (x1 > 0) & (x1 < wd) & (y1 > 0) & (y1 < ht)
+    x1, y1, dxf, dyf = x1[valid], y1[valid], dxf[valid], dyf[valid]
+    flow_x = interpolate.griddata((x1, y1), dxf, (x0, y0), method="nearest", fill_value=0)
+    flow_y = interpolate.griddata((x1, y1), dyf, (x0, y0), method="nearest", fill_value=0)
+    out = np.stack([flow_x, flow_y], axis=0).astype(np.float32)
+    return torch.from_numpy(out).to(flow.device)

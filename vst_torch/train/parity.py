@@ -3,7 +3,8 @@ two such steps: how the card's step is held against the CPU's
 (``chip_smoke.py``, ``tests/test_torch_cuda.py``) and the port's against
 vst's (``tests/torch_train_parity.py``). The feed-forward family's step is
 :func:`training_step`; the StarGAN trainers' are :func:`stargan2_steps` and
-:func:`stargan_steps`; the CycleGAN family's :func:`cyclegan_steps`.
+:func:`stargan_steps`; the CycleGAN family's :func:`cyclegan_steps`; RAFT's
+sequence loss :func:`raft_sequence_step`.
 
 Gradients are compared per parameter in relative L2. A gradient that is 0 in
 exact arithmetic (a conv bias in front of an instance norm, which subtracts
@@ -16,13 +17,16 @@ and max-pools a float32 gradient turns on which units rounding switches on
 
 from __future__ import annotations
 
+import copy
 from typing import Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 from vst_torch.data.fc2 import synthetic_fc2_batches
 from vst_torch.data.styles import load_style_images
 from vst_torch.data.synthetic import synthetic_batch
+from vst_torch.flow.datasets import flow_sequence_loss
 from vst_torch.train.cyclegan import (CycleGANConfig, CycleGANTrainer, cyclegan_batch,
                                       fc2_to_cyclegan)
 from vst_torch.train.faststyle import FastStyleTrainer, batch_to_tensors
@@ -161,6 +165,36 @@ def cyclegan_steps(variant: str, device, dtype: torch.dtype, seed: int = 0, raft
                      {f"{k}.{n}": p.detach().double().cpu() for k in names
                       for n, p in trainer.nets[k].named_parameters()})
     return out
+
+
+def raft_train_inputs(hw=(64, 64), batch: int = 1, seed: int = 0) -> Dict[str, np.ndarray]:
+    """A seeded flow-training batch, vst's NHWC layout: image1 / image2
+    (B, H, W, 3) in [0, 255], a ground-truth flow (B, H, W, 2) of a few
+    pixels and a valid map (B, H, W) with a fifth of it 0; float32."""
+    rng = np.random.RandomState(seed)
+    f32 = np.float32
+    return {"image1": (rng.rand(batch, *hw, 3) * 255).astype(f32),
+            "image2": (rng.rand(batch, *hw, 3) * 255).astype(f32),
+            "flow": (rng.randn(batch, *hw, 2) * 2).astype(f32),
+            "valid": (rng.rand(batch, *hw) > 0.2).astype(f32)}
+
+
+def raft_sequence_step(net, inputs: Dict[str, np.ndarray], device, dtype: torch.dtype,
+                       gamma: float = 0.8) -> Tuple[float, Dict[str, torch.Tensor]]:
+    """(loss, every parameter's gradient as float64 on the CPU, under each of
+    its ``state_dict`` names) of ``flow_sequence_loss`` over a copy of
+    ``net`` (a ``RAFT(train_mode=True)``) in ``dtype`` on ``device``, on
+    :func:`raft_train_inputs`. A float64 net needs the lookup's plain
+    version (``RAFT(lookup=lookup_pyramid)``)."""
+    net = copy.deepcopy(net).to(device, dtype)
+    x = {k: torch.from_numpy(v).to(device, dtype) for k, v in inputs.items()}
+    nchw = lambda t: t.permute(0, 3, 1, 2).contiguous()  # noqa: E731
+    _, preds = net(nchw(x["image1"]), nchw(x["image2"]))
+    loss = flow_sequence_loss(preds, nchw(x["flow"]), x["valid"], gamma=gamma)
+    loss.backward()
+    grads = {name: p.grad.detach().to("cpu", torch.float64)
+             for name, p in net.named_parameters(remove_duplicate=False)}
+    return float(loss.detach()), grads
 
 
 def max_loss_rel_err(got: Dict[str, float], want: Dict[str, float]) -> float:
