@@ -2,7 +2,7 @@
 """Drive the vst_torch port's paths once on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py                               # every phase, from the repository root
-    python3 chip_smoke.py build kernel datagen raft_train  # only the phases named
+    python3 chip_smoke.py build kernel demos            # only the phases named
 
 Phases, one JSON line each; any failure raises and the exit code is not 0:
 
@@ -37,7 +37,8 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
    bit (max |Δ| = 0); per variant, the pair's eager time beside its device
    time alone (a CUDA graph) and the host's time to issue it.
 8. stylize_video: `vst_torch.cli stylize-video` at 436×1024 on 24 synthetic
-   frames, f32 at batch 1 and bf16 at batch 8: 24 PNGs each, frames/s; its
+   frames, f32 at batch 1 and bf16 at batch 8: 24 PNGs and a video (a GIF
+   through PIL on a machine without imageio) each, frames/s; its
    timed loop 5 times more, with the net and with the copies alone, and the
    net's device time per frame.
 9. trunk_conv: pad_conv3x3 (modes full and mxu_only) against its plain
@@ -157,6 +158,23 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
    backward at that shape, one step under torch.profiler; RAFT small (12
    iterations, radius 3) at 4×3×432×1024 through the kernel after the same
    net at 64×96 against the plain lookup (≤ 1e-3 px), 12 launches a call.
+20. demos: `demo-web` through its classes (Huang, 3 styles, 436×1024, on a
+   server bound to port 0, over its 48-frame synthetic clip): the page,
+   the controls (style 1 at strength 0.5, half scale for the second half,
+   then sid −1), the state (48 frames), a JPEG frame and a snapshot; per
+   part of the clip the median ms a frame of the host→device copy, the net
+   and the device→host copy (CUDA events) and the JPEG (host clock), the
+   FPS readout and each request's wall. `vst_torch.cli demo` at 436×1024,
+   48 frames (its JSON line and the video it wrote). The seeded FAN: its
+   forward at 1×3×256² (best of 3 windows), its heatmaps against the same
+   module on the CPU (max |Δ| ≤ 1e-3 of max |heat|), `get_heatmap` with
+   masks at batch 8, and `profile_trace` of a forward (its annotation and
+   the card's kernels in the trace). `align-faces` on 8 synthetic 256²
+   scenes written as PNGs: seconds an image, 8 files. StarGAN v2's
+   generator with w_hpf = 1 at 256², batch 8, with the FAN's masks: ms and
+   peak memory, the masks moving the output; `latent_interpolation_video`
+   (3 latents × 16 steps through that generator and a mapping net) and
+   `make_videos` over the face directories. No kernel is launched.
 
 Phase names on the command line run only those phases (all of them
 without one). Phases 5–19 each drive one path with the kernels' launch
@@ -175,12 +193,16 @@ import os
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from functools import partial
+from http.server import ThreadingHTTPServer
+from urllib.request import Request, urlopen
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+from PIL import Image
 
 from vst_torch import bench, set_f32_precision
 from vst_torch.cli.__main__ import (RAFT_VARIANTS, source_frames, stylize_frames,
@@ -189,7 +211,10 @@ from vst_torch.cli.__main__ import synthetic_clip as cli_synthetic_clip
 from vst_torch.cli.__main__ import main as cli_main
 from vst_torch.cli.__main__ import parser as cli_parser
 from vst_torch.core.roofline import PEAK_BYTES_PER_S, PEAK_F32_OPS_PER_S
+from vst_torch.cli.webdemo import WebDemo
+from vst_torch.cli.webdemo import make_handler as make_web_handler
 from vst_torch.core.timing import chain_ms, cold_pool, graph_ms, host_ms, windows_ms
+from vst_torch.core.trace import annotate, profile_trace
 from vst_torch.data.device_cache import DeviceFC2Cache
 from vst_torch.data.datagen import generate_fc2_corpus, pack_fc2_npy, precompute_lt_flow
 from vst_torch.data.styles import load_style_images
@@ -198,7 +223,8 @@ from vst_torch.eval.drivers import (evaluate_sintel_cyclegan, evaluate_sintel_fa
                                     evaluate_sintel_stargan, evaluate_sintel_stargan2,
                                     faststyle_stylize_fn, stargan2_styles)
 from vst_torch.eval.sintel import SintelVideo, make_tcl_program
-from vst_torch.eval.video import write_png
+from vst_torch.data.synthetic import _scene as scene
+from vst_torch.eval.video import latent_interpolation_video, make_videos, write_png
 from vst_torch.flow.corr import build_pyramid, lookup_pyramid
 from vst_torch.flow.datasets import fetch_flow_datasets, flow_sequence_loss
 from vst_torch.flow.raft import RAFT, coords_grid
@@ -219,6 +245,7 @@ from vst_torch.models.gatys import OBST, PYR_SINTEL
 from vst_torch.models.stargan import Generator as StarGANGenerator
 from vst_torch.models.stargan2 import Generator as StarGAN2Generator
 from vst_torch.models.stargan2 import MappingNetwork
+from vst_torch.models.wing import FAN, get_heatmap
 from vst_torch.nn.conv import cudnn_enabled
 from vst_torch.ops.image import InputPadder
 from vst_torch.perceptual.vgg import Vgg16Features, he_randomized_
@@ -783,10 +810,11 @@ def phase_stylize_video(dev):
             written = sorted(os.listdir(out_dir))
             pngs = [f for f in written if f.endswith(".png")]
             signatures = {png_signature(os.path.join(out_dir, f)) for f in pngs}
+            kind = line["video"] and video_signature(line["video"])
         if (len(pngs) != VIDEO_FRAMES or line["frames"] != VIDEO_FRAMES
-                or signatures != {b"\x89PNG\r\n\x1a\n"}
+                or signatures != {b"\x89PNG\r\n\x1a\n"} or kind is None
                 or not (math.isfinite(line["frames_per_sec"]) and line["frames_per_sec"] > 0)):
-            raise AssertionError(f"stylize-video {line}: wrote {written}")
+            raise AssertionError(f"stylize-video {line}: wrote {written}, video kind {kind}")
         args = cli_parser().parse_args(argv)
         frames = source_frames(args)
         stylize, dtype = video_stylizer(args, dev)
@@ -797,7 +825,8 @@ def phase_stylize_video(dev):
                    for what, fn in (("net", stylize), ("copies_only", lambda y: y))}
             device_ms = min(windows_ms(stylize, x, 10)) / batch
         record["runs"][f"{line['dtype']}_b{batch}"] = {
-            **line, "pngs": len(pngs), "other_files": [f for f in written if f not in pngs],
+            **line, "video_kind": kind, "pngs": len(pngs),
+            "other_files": [f for f in written if f not in pngs],
             "passes_frames_per_sec": fps["net"],
             "median_frames_per_sec": fps["net"][VIDEO_PASSES // 2],
             "copies_only_frames_per_sec": fps["copies_only"],
@@ -2006,6 +2035,233 @@ def phase_raft_train(dev):
     return {"raft_train": launches, "raft_small_eval": record["small_eval"]["corr_lookup_launches"]}
 
 
+DEMO_STYLES, DEMO_FRAMES = 3, 48  # Huang's 3 styles; the web demo's 48-frame synthetic clip
+FAN_HW, FAN_BATCH = 256, 8
+FAN_CARD_RTOL = 1e-3  # FAN heatmaps card against CPU, f32 with TF32 off, of max |heat|
+ALIGN_IMAGES = 8
+HPF_SIZE, HPF_BATCH, HPF_STYLE, HPF_LATENT, HPF_DOMAINS = 256, 8, 64, 16, 4
+LATENTS, LATENT_STEPS = 3, 16
+
+
+def http(base, path, payload=None):
+    """(body, wall ms) of one request: a GET, or a POST of ``payload`` as JSON."""
+    data = None if payload is None else json.dumps(payload).encode()
+    t0 = time.perf_counter()
+    with urlopen(Request(base + path, data=data, method="GET" if data is None else "POST"),
+                 timeout=120) as r:
+        body = r.read()
+    return body, (time.perf_counter() - t0) * 1e3
+
+
+def stage_medians(rows):
+    return {k: float(np.median([r[k] for r in rows])) for k in rows[0]}
+
+
+def demo_web_run(dev, out_dir):
+    """The demo-web server over vst's 48-frame synthetic clip at 436×1024,
+    Huang with 3 styles, driven as vst's own test drives it: the page, the
+    controls (style 1 at strength 0.5; half scale for the second half; then
+    sid −1), the state, a frame and a snapshot. Per part of the clip, the
+    median ms a frame of each stage (CUDA events on the copies and the net,
+    the host clock on the JPEG) and the FPS readout; each request's wall."""
+    t0 = time.perf_counter()
+    demo = WebDemo(method="huang", n_styles=DEMO_STYLES, hw=SINTEL_HW, out_path=out_dir, seed=0,
+                   device=dev)
+    setup_s = time.perf_counter() - t0  # the net, and the clip made on the host
+    server = ThreadingHTTPServer(("127.0.0.1", 0), make_web_handler(demo))
+    serving = threading.Thread(target=server.serve_forever, daemon=True)
+    serving.start()
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+    walls, parts = {}, {}
+    try:
+        page, walls["page"] = http(base, "/")
+        _, walls["control_sid"] = http(base, "/control", {"sid": 1})
+        _, walls["control_strength"] = http(base, "/control", {"strength": 0.5})
+        for name, upto, control in (("full_scale", DEMO_FRAMES // 2, None),
+                                    ("half_scale", DEMO_FRAMES - 4, {"scale": 0.5}),
+                                    ("pass_through", DEMO_FRAMES, {"sid": -1})):
+            if control:
+                _, walls[f"control_{name}"] = http(base, "/control", control)
+            start, t0 = demo.frames_done, time.perf_counter()
+            loop = threading.Thread(target=demo.loop, kwargs={"max_frames": upto})
+            loop.start()
+            loop.join(300)
+            if loop.is_alive():
+                raise AssertionError(f"demo-web: the loop did not reach {upto} frames")
+            wall = time.perf_counter() - t0
+            parts[name] = {"frames": upto - start, "wall_s": wall,
+                           "frames_per_s": (upto - start) / wall, "fps_readout": demo.fps,
+                           "median_ms": stage_medians(list(demo.stage_ms)[start:upto])}
+        state, walls["state"] = http(base, "/state")
+        frame, walls["frame_jpg"] = http(base, "/frame.jpg")
+        snap, walls["snapshot"] = http(base, "/snapshot", {})
+    finally:
+        demo.stop()
+        server.shutdown()
+        server.server_close()
+    state, saved = json.loads(state), json.loads(snap)["saved"]
+    with open(saved, "rb") as f:
+        snapshot = f.read()
+    if (f"style {DEMO_STYLES}".encode() not in page or state["frames"] != DEMO_FRAMES
+            or frame[:2] != b"\xff\xd8" or snapshot[:2] != b"\xff\xd8"):
+        raise AssertionError(f"demo-web: state {state}, frame {frame[:4]}, snapshot "
+                             f"{snapshot[:4]}")
+    return {"hw": list(SINTEL_HW), "styles": DEMO_STYLES, "setup_s": setup_s, "state": state,
+            "parts": parts,
+            "request_wall_ms": walls, "jpeg_bytes": len(frame), "snapshot_bytes": len(snapshot)}
+
+
+def video_signature(path):
+    """The file's kind by its first bytes: gif, mp4, or None."""
+    with open(path, "rb") as f:
+        head = f.read(12)
+    return "gif" if head[:6] in (b"GIF87a", b"GIF89a") else "mp4" if head[4:8] == b"ftyp" else None
+
+
+def best_ms(fn, windows=3, reps=5):
+    """The best of ``windows`` means over ``reps`` calls (CUDA events)."""
+    return min(time_ms(fn, reps, 1) for _ in range(windows))
+
+
+def fan_run(dev, tmp):
+    """The seeded FAN: its forward at 1×3×256² (best of 3 windows), its
+    heatmaps on the card against the same module on the CPU, get_heatmap
+    with masks at batch 8, and a profile_trace of a forward holding its
+    annotation and the card's kernels. Returns (the record, the FAN, the
+    batch's images and masks)."""
+    torch.manual_seed(0)
+    fan_cpu = FAN()
+    fan = FAN().to(dev)
+    fan.load_state_dict(fan_cpu.state_dict())
+    rng = np.random.RandomState(0)
+    x1 = torch.from_numpy(rng.rand(1, 3, FAN_HW, FAN_HW).astype(np.float32))
+    xb = torch.from_numpy(rng.uniform(-1, 1, (FAN_BATCH, 3, FAN_HW, FAN_HW)).astype(np.float32))
+    with torch.inference_mode():
+        heat_cpu, _ = fan_cpu(x1)
+        heat, _ = fan(x1.to(dev))
+        err = (heat.cpu() - heat_cpu).abs().max().item()
+        scale = heat_cpu.abs().max().item()
+        if not err <= FAN_CARD_RTOL * scale:
+            raise AssertionError(f"FAN card vs CPU: max |Δ| {err} > {FAN_CARD_RTOL} × {scale}")
+        x1d, xbd = x1.to(dev), xb.to(dev)
+        fwd_ms = best_ms(lambda: fan(x1d))
+        masks = get_heatmap(fan, xbd)
+        heatmap_ms = best_ms(lambda: get_heatmap(fan, xbd), reps=3)
+        if any(m.shape != (FAN_BATCH, 1, FAN_HW, FAN_HW) or not torch.isfinite(m).all()
+               for m in masks):
+            raise AssertionError("get_heatmap: masks not finite or of shape")
+        trace_dir = os.path.join(tmp, "trace")
+        with profile_trace(trace_dir):
+            with annotate("demos/fan_forward"):
+                fan(x1d)
+                torch.cuda.synchronize()
+    events = []
+    for name in os.listdir(trace_dir):
+        with open(os.path.join(trace_dir, name)) as f:
+            events += json.load(f)["traceEvents"]
+    kernels = sum(1 for e in events if e.get("cat") == "kernel")
+    if kernels == 0 or not any(e.get("name") == "demos/fan_forward" for e in events):
+        raise AssertionError(f"profile_trace: {kernels} kernel events, annotation missing")
+    return ({"forward_1x256_ms": fwd_ms, "get_heatmap_b8_ms": heatmap_ms,
+             "card_vs_cpu": {"max_abs_err": err, "max_abs_heat": scale,
+                             "bound": FAN_CARD_RTOL * scale},
+             "mask_mean": [m.mean().item() for m in masks],
+             "trace": {"kernel_events": kernels, "events": len(events)}},
+            fan, xbd, masks)
+
+
+def phase_demos(dev):
+    """demo-web, demo, the FAN, align-faces, StarGAN v2's high-pass branch,
+    the latent walk and make_videos, at full width (see the module doc)."""
+    record = {"phase": "demos", "seconds": {}}
+    reset_counts()
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        record["demo_web"] = demo_web_run(dev, os.path.join(tmp, "web"))
+        record["seconds"]["demo_web"] = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        line = cli_main(["demo", "--hw", *map(str, SINTEL_HW), "--n-frames", str(DEMO_FRAMES),
+                         "--out-dir", os.path.join(tmp, "demo")])
+        kind = video_signature(line["video"])
+        if line["frames"] != DEMO_FRAMES or line["hw"] != list(SINTEL_HW) or kind is None:
+            raise AssertionError(f"demo: {line}, file kind {kind}")
+        record["demo"] = {**line, "kind": kind, "bytes": os.path.getsize(line["video"]),
+                          "wall_s": time.perf_counter() - t0}
+        record["seconds"]["demo"] = record["demo"]["wall_s"]
+
+        t0 = time.perf_counter()
+        record["fan"], fan, xb, masks = fan_run(dev, tmp)
+        record["seconds"]["fan"] = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        frames = os.path.join(tmp, "frames")
+        faces_in, faces_out = os.path.join(frames, "faces_in"), os.path.join(frames, "faces_out")
+        os.makedirs(faces_in)
+        rng = np.random.RandomState(1)
+        for i in range(ALIGN_IMAGES):
+            write_png(os.path.join(faces_in, f"{i:04d}.png"),
+                      (scene(rng, (FAN_HW, FAN_HW)) * 255).astype(np.uint8))
+        line = cli_main(["align-faces", "--input-dir", faces_in, "--output-dir-align", faces_out,
+                         "--img-size", str(FAN_HW)])
+        written = sorted(os.listdir(faces_out))
+        if line["aligned"] != ALIGN_IMAGES or written != sorted(os.listdir(faces_in)):
+            raise AssertionError(f"align-faces: {line}, wrote {written}")
+        record["align_faces"] = {**line, "s_per_image": line["seconds"] / ALIGN_IMAGES,
+                                 "written": len(written)}
+        record["seconds"]["align_faces"] = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        torch.manual_seed(0)
+        gen = StarGAN2Generator(HPF_SIZE, HPF_STYLE, w_hpf=1).to(dev).eval()
+        mapping = MappingNetwork(HPF_LATENT, HPF_STYLE, HPF_DOMAINS).to(dev).eval()
+        s = torch.randn(HPF_BATCH, HPF_STYLE, device=dev)
+        with torch.inference_mode():
+            out = gen(xb, s, masks)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            g_ms = best_ms(lambda: gen(xb, s, masks), reps=3)
+            peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+            moved = (out - gen(xb, s)).abs().max().item()
+        if out.shape != xb.shape or not torch.isfinite(out).all() or moved == 0.0:
+            raise AssertionError(f"StarGAN v2 w_hpf=1: shape {tuple(out.shape)}, finite "
+                                 f"{bool(torch.isfinite(out).all())}, masks moved it {moved}")
+        one = [m[:1] for m in masks]
+        latents = np.random.RandomState(2).randn(LATENTS, HPF_LATENT).astype(np.float32)
+        t1 = time.perf_counter()
+        path = latent_interpolation_video(lambda x, st: gen(x, st, one), mapping, xb[0], latents,
+                                          torch.tensor([1], device=dev),
+                                          os.path.join(tmp, "latent", "interp.mp4"),
+                                          steps_per_pair=LATENT_STEPS)
+        latent_s = time.perf_counter() - t1
+        kind, n = video_signature(path), None
+        if kind == "gif":
+            with Image.open(path) as video:
+                n = video.n_frames
+        if kind is None or n not in (None, (LATENTS - 1) * LATENT_STEPS):
+            raise AssertionError(f"latent_interpolation_video: {n} frames in {path}")
+        record["stargan2_hpf"] = {
+            "img_size": HPF_SIZE, "batch": HPF_BATCH, "w_hpf": 1, "forward_ms": g_ms,
+            "peak_mem_gib": peak, "masks_moved_max_abs": moved,
+            "latent_video": {"file": os.path.basename(path), "kind": kind,
+                             "frames": (LATENTS - 1) * LATENT_STEPS, "frames_read": n,
+                             "wall_s": latent_s}}
+        record["seconds"]["stargan2_hpf"] = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        videos = make_videos(frames, os.path.join(tmp, "videos"))
+        if len(videos) != 2 or not all(video_signature(v) for v in videos):
+            raise AssertionError(f"make_videos: {videos}")
+        record["make_videos"] = {"files": [os.path.basename(v) for v in videos],
+                                 "kinds": [video_signature(v) for v in videos],
+                                 "wall_s": time.perf_counter() - t0}
+        record["seconds"]["make_videos"] = record["make_videos"]["wall_s"]
+    record["kernel_launches"] = kernel_launches()
+    if any(record["kernel_launches"].values()):
+        raise AssertionError(f"demos launched a kernel: {record['kernel_launches']}")
+    emit(record)
+
+
 def kernel_entries(name, source, replaces, measured):
     """The kernels line's entries of one kernel, one per variant."""
     return [{"name": f"{name}_{variant}", "route": "cuda", "source": source,
@@ -2027,7 +2283,7 @@ def per_conv(measured):
 
 PHASES = ("build", "kernel", "stylize", "raft", "main_path", "eval_sintel", "raft_bf16",
           "stylize_video", "trunk_conv", "kernel_cost", "gemm_rate", "bench", "train_faststyle",
-          "obst", "fc2_metrics", "stargan", "cyclegan", "datagen", "raft_train")
+          "obst", "fc2_metrics", "stargan", "cyclegan", "datagen", "raft_train", "demos")
 
 
 def null_entries(name, source, replaces, variants):
@@ -2086,6 +2342,7 @@ def main(argv=None) -> int:
     by_path.update(run("cyclegan", phase_cyclegan, dev) or {})
     by_path.update(run("datagen", phase_datagen, dev) or {})
     by_path.update(run("raft_train", phase_raft_train, dev) or {})
+    run("demos", phase_demos, dev)
     emit({"phase_seconds": seconds, "total_s": sum(seconds.values())})
 
     smi = subprocess.run(["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",

@@ -38,7 +38,7 @@ def _subcommands(p):
 
 VST = _subcommands(_vst_parser())
 PORT = _subcommands(port_parser())
-NOT_PORTED = {"align-faces", "demo", "demo-web"}  # ROADMAP.md §1 item 3-4
+NOT_PORTED = set()  # every subcommand of vst is ported
 
 
 def _argv(action):

@@ -99,3 +99,11 @@ def test_datagen_and_flow_training_modules_are_checked():
     assert {f"vst_torch/{m}.py" for m in (
         "flow/io", "flow/datasets", "flow/raft", "data/sintel", "data/datagen", "data/synthetic",
         "ops/flowtools", "train/parity", "cli/__main__")} <= names
+
+
+def test_demo_face_and_tool_modules_are_checked():
+    names = {str(p.relative_to(ROOT)) for p in SOURCES}
+    assert {f"vst_torch/{m}.py" for m in (
+        "cli/demo", "cli/webdemo", "models/wing", "models/align", "models/stargan2",
+        "flow/viz", "core/visualizer", "core/trace", "eval/video", "bench",
+        "eval/sintel")} <= names

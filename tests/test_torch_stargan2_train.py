@@ -80,14 +80,17 @@ def test_ema_and_lambda_ds_step():
             for p in net.parameters():
                 p.copy_(torch.from_numpy(rng.randn(*p.shape).astype(np.float32)))
     state = vst_state(jt, vst_params(port))
-    port_ema = {k: {n: p.detach().numpy() for n, p in net.state_dict().items()}
+    # copies, not views: vst's step runs asynchronously and donates its state
+    # while port.ema_step() changes the port's parameters in place
+    port_ema = {k: {n: np.array(p.detach().numpy(), copy=True)
+                    for n, p in net.state_dict().items()}
                 for k, net in port.ema.items()}
     to_vst = {"generator": lambda sd: generator_params_from_torch(sd, S),
               "mapping": mapping_params_from_torch,
               "style_enc": lambda sd: style_encoder_params_from_torch(sd, S)}
     state = state.replace(ema={k: tree(to_vst[k](sd)) for k, sd in port_ema.items()})
     for _ in range(3):
-        state = jt.ema_step()(state)
+        state = jax.block_until_ready(jt.ema_step()(state))
         port.ema_step()
     assert port.step == int(state.step) == 3
     assert float(port.lambda_ds) == float(state.lambda_ds) == 0.0

@@ -167,11 +167,13 @@ def test_v2_nets(v2_nets):
 
 
 def test_v2_generator_refuses_the_high_pass():
-    with pytest.raises(NotImplementedError, match="wing"):
-        sg2.Generator(S, w_hpf=1)
+    """A generator built with w_hpf = 0 has no high-pass branch and refuses
+    masks (the branch itself: ``tests/test_torch_wing.py``)."""
     g = sg2.Generator(S, CFG2["style_dim"], CFG2["max_conv_dim"])
-    with pytest.raises(NotImplementedError, match="wing"):
-        g(torch.zeros(1, 3, S, S), torch.zeros(1, CFG2["style_dim"]), masks=[None, None])
+    assert not hasattr(g, "hpf")
+    with pytest.raises(ValueError, match="w_hpf"):
+        g(torch.zeros(1, 3, S, S), torch.zeros(1, CFG2["style_dim"]),
+          masks=[torch.ones(1, 1, S, S)] * 2)
 
 
 def test_he_init():

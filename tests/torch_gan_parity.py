@@ -82,7 +82,10 @@ def fc2_batch(hw, batch_size, num_dom, seed):
 
 
 def tree(params, dtype=jnp.float32):
-    return jax.tree_util.tree_map(lambda a: jnp.asarray(np.asarray(a), dtype), params)
+    """``params`` as jax arrays of their own: copies, never views of the
+    numpy arrays (which may view a port net's live parameters) that jax's
+    CPU backend could alias, then see changed in place or donate."""
+    return jax.tree_util.tree_map(lambda a: jnp.array(np.array(a, copy=True), dtype), params)
 
 
 def grad_probe():

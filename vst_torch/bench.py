@@ -17,8 +17,10 @@ of ``bench.py``'s one-program ``fori_loop``); a capture that fails raises.
 Peak device memory per config is recorded. Prints one JSON line with
 ``bench.py``'s keys.
 
-Left out: ``bench.py``'s ``_dn`` configs, which measure XLA buffer donation
-(no PyTorch counterpart), and ``profile_trace``.
+With ``VST_PROFILE_DIR`` set, the run is traced into that directory
+(``vst_torch.core.trace.profile_trace``), each config under
+``bench/<name>``. Left out: ``bench.py``'s ``_dn`` configs, which measure
+XLA buffer donation (no PyTorch counterpart).
 """
 
 from __future__ import annotations
@@ -32,6 +34,7 @@ import torch
 
 from vst_torch import set_f32_precision
 from vst_torch.core.timing import windows_ms
+from vst_torch.core.trace import annotate, profile_trace
 from vst_torch.models.faststyle import FastStyleNet
 
 REF_FPS = 1000.0 / 5.87  # the reference's Johnson DT on an RTX 2080, as bench.py
@@ -141,9 +144,11 @@ def run(configs: Sequence = CONFIGS, device="cuda") -> Dict:
         raise RuntimeError("the benchmark times a CUDA device; got " + str(device))
     set_f32_precision()
     results = {}
-    for name, dtype, batch in configs:
-        results[name] = measure(dtype, batch, device=device)
-        print(name, json.dumps(results[name]), file=sys.stderr, flush=True)
+    with profile_trace():  # a no-op unless VST_PROFILE_DIR is set
+        for name, dtype, batch in configs:
+            with annotate(f"bench/{name}"):
+                results[name] = measure(dtype, batch, device=device)
+            print(name, json.dumps(results[name]), file=sys.stderr, flush=True)
     return report(results, torch.cuda.get_device_name(device))
 
 

@@ -27,6 +27,11 @@ family's training and evaluation, and the benchmarks.
                                            [--styler gatys|procedural] [--iters 30 25 20]
     python -m vst_torch.cli bench
     python -m vst_torch.cli bench-raft [--hw 436 1024] [--iters 5] [--out-dir DIR]
+    python -m vst_torch.cli demo [--source webcam|VIDEO] [--method huang] [--n-frames 60]
+                                 [--ckpt-dir FILE|DIR] [--show]
+    python -m vst_torch.cli demo-web [--port 8600] [--max-frames N] [--source VIDEO|INDEX]
+    python -m vst_torch.cli align-faces --input-dir DIR --output-dir-align DIR [--img-size 256]
+                                        [--wing-ckpt FILE] [--lm-path celeba_lm_mean.npz]
 
 Every command runs on CUDA unless given ``--device cpu``; without a card it
 stops. Float32 runs with TF32 off; RAFT's lookup goes through the
@@ -106,8 +111,9 @@ and writes the JSONs to ``--out-dir``.
 
 ``stylize-video``: a frame directory or a video file (both through cv2) or
 the synthetic clip, cropped to multiples of 4, stylized in chunks of ``--batch-size`` (the
-tail chunk padded), ``--bf16`` casting the whole net; writes PNGs and, where
-imageio is installed, a video, and prints a JSON line of throughput.
+tail chunk padded), ``--bf16`` casting the whole net; writes PNGs and a video (an mp4
+through imageio's ffmpeg backend, else vst's GIF, through PIL where imageio
+is not installed), and prints a JSON line of throughput.
 
 ``eval-obst``: OBST (L-BFGS on the image against a caffe VGG19's Grams,
 coarse to fine over the pyramid that ``--iters-pyr`` sets under ``--hw``)
@@ -155,7 +161,23 @@ Every subcommand accepts vst's common flags (``--steps``, ``--batch-size``,
 ``--log-every``, ``--ckpt-every``, ``--data-dir``, ``--device-cache``); one
 that a command does not read is ignored, and its help says so.
 
-Not ported yet: ``align-faces``, ``demo`` and ``demo-web`` (``ROADMAP.md`` §1).
+``demo`` (``vst_torch.cli.demo``) stylizes ``--n-frames`` frames of a webcam,
+a video file or vst's synthetic clip one by one with ``--method``'s net
+(``ruder`` runs Huang's; seeded, or ``--ckpt-dir``: a state_dict file or a
+``train-faststyle`` out-dir), writes ``<out-dir>/demo.mp4`` (or vst's GIF),
+prints vst's line and one JSON line (frames, size, FPS readout, file);
+``--show`` opens an OpenCV window with vst's keys. ``demo-web``
+(``vst_torch.cli.webdemo``) serves vst's browser page on 127.0.0.1:``--port``
+over the same net and stops after ``--max-frames`` frames when given.
+``align-faces`` aligns every image of ``--input-dir`` to the landmark
+template with the FAN (``--wing-ckpt``, the reference's ``wing.ckpt``
+state_dict, or a net seeded by ``--seed``; ``--lm-path`` the template, the
+synthetic one otherwise), writes each under its name in
+``--output-dir-align``, prints vst's line and one JSON line (count,
+``--img-size``, seconds).
+
+With ``VST_PROFILE_DIR`` set, ``bench`` and the Sintel evaluation write a
+torch.profiler trace there (``vst_torch.core.trace``).
 """
 
 from __future__ import annotations
@@ -192,7 +214,7 @@ from vst_torch.metrics.fid import InceptionV3
 from vst_torch.models.cyclegan import ResnetGenerator
 from vst_torch.models.gatys import OBST
 from vst_torch.models.stargan import Generator as StarGANGenerator
-from vst_torch.ops.image import InputPadder
+from vst_torch.ops.image import InputPadder, resize_bilinear
 from vst_torch.train.cyclegan import (VARIANTS, CycleGANConfig, CycleGANTrainer, cyclegan_batch,
                                       fc2_to_cyclegan)
 from vst_torch.train.faststyle import FastStyleTrainer, batch_to_tensors
@@ -1033,19 +1055,74 @@ def cmd_stylize_video(args) -> Dict:
 
     for i, f in enumerate(styled):
         write_png(os.path.join(args.out_dir, f"frame_{i:05d}.png"), f)
-    try:
-        vpath, writer = _writer(os.path.join(args.out_dir, "styled.mp4"), fps=18)
-    except ImportError as e:
-        vpath = None
-        print(f"stylize-video: no video written, imageio is not installed ({e})", flush=True)
-    else:
-        with writer:
-            for f in styled:
-                writer.append_data(f)
+    vpath, writer = _writer(os.path.join(args.out_dir, "styled.mp4"), fps=18)
+    with writer:
+        for f in styled:
+            writer.append_data(f)
     line = {"frames": int(T), "hw": [H4, W4], "batch_size": B,
             "dtype": "bfloat16" if args.bf16 else "float32", "wall_s": round(wall, 3),
             "frames_per_sec": round(T / wall, 2), "video": vpath}
     print(json.dumps(line))
+    return line
+
+
+def cmd_demo(args) -> Dict:
+    from vst_torch.cli.demo import run_demo
+
+    device = _device(args)
+    set_f32_precision()
+    return run_demo(source=args.source, ckpt_dir=args.ckpt_dir, method=args.method,
+                    n_styles=args.n_styles, n_frames=args.n_frames, hw=tuple(args.hw),
+                    out_path=os.path.join(args.out_dir, "demo"), show=args.show,
+                    seed=args.seed, device=device)
+
+
+def cmd_demo_web(args) -> None:
+    from vst_torch.cli.webdemo import run_web_demo
+
+    device = _device(args)
+    set_f32_precision()
+    run_web_demo(port=args.port, max_frames=args.max_frames, source=args.source,
+                 ckpt_dir=args.ckpt_dir, method=args.method, n_styles=args.n_styles,
+                 hw=tuple(args.hw), out_path=os.path.join(args.out_dir, "demo"), seed=args.seed,
+                 device=device)
+
+
+def cmd_align_faces(args) -> Dict:
+    """``align_faces`` (``StarGANv2Adv/core/wing.py:413-436``): each image of
+    ``--input-dir`` read through PIL as RGB, resized to ``--img-size`` square
+    (bilinear), aligned, and written under its name as uint8
+    (out · 0.5 + 0.5) · 255, truncated."""
+    from PIL import Image
+
+    from vst_torch.models.align import FaceAligner
+    from vst_torch.models.wing import FAN
+
+    device = _device(args)
+    set_f32_precision()
+    torch.manual_seed(args.seed)
+    fan = FAN()
+    if args.wing_ckpt:
+        fan.load_state_dict(load_state(args.wing_ckpt))
+    ref = np.load(args.lm_path)["mean"].astype(np.float32) if args.lm_path else None
+    aligner = FaceAligner(fan.to(device), output_size=args.img_size, ref_landmarks=ref)
+
+    os.makedirs(args.output_dir_align, exist_ok=True)
+    names = sorted(os.listdir(args.input_dir))
+    size = (args.img_size, args.img_size)
+    t0 = time.perf_counter()
+    for name in names:
+        with Image.open(os.path.join(args.input_dir, name)) as img:
+            rgb = np.asarray(img.convert("RGB"), np.float32) / 255.0
+        x = torch.from_numpy(rgb).to(device).permute(2, 0, 1)[None]
+        out = aligner.align(resize_bilinear(x, size, align_corners=False) * 2.0 - 1.0)[0]
+        Image.fromarray((np.clip(out * 0.5 + 0.5, 0, 1) * 255).astype(np.uint8)).save(
+            os.path.join(args.output_dir_align, name))
+    seconds = time.perf_counter() - t0
+    print(f"aligned {len(names)} images → {args.output_dir_align}")
+    line = {"aligned": len(names), "img_size": args.img_size, "seconds": seconds,
+            "device": device_name(device)}
+    print(json.dumps(line), flush=True)
     return line
 
 
@@ -1317,6 +1394,42 @@ def parser() -> argparse.ArgumentParser:
                    help="'procedural' = deterministic per-domain transforms (for environments "
                         "without pretrained VGG weights)")
     s.set_defaults(fn=cmd_datagen_corpus)
+
+    s = sub.add_parser("align-faces", help="FAN-landmark face alignment over an image dir")
+    _add_common(s)
+    s.add_argument("--input-dir", required=True)
+    s.add_argument("--output-dir-align", required=True)
+    s.add_argument("--img-size", type=int, default=256)
+    s.add_argument("--wing-ckpt", default=None,
+                   help="the reference's wing.ckpt state_dict (a FAN seeded by --seed otherwise)")
+    s.add_argument("--lm-path", default=None,
+                   help="celeba_lm_mean.npz; the synthetic template otherwise")
+    s.set_defaults(fn=cmd_align_faces)
+
+    s = sub.add_parser("demo", help="live stylization demo (a video out, or a window with --show)")
+    _add_common(s)
+    s.add_argument("--source", default=None,
+                   help="'webcam', a video path, or omit for a synthetic clip")
+    s.add_argument("--method", default="huang", choices=tuple(FASTSTYLE_METHODS))
+    s.add_argument("--n-styles", type=int, default=3)
+    s.add_argument("--n-frames", type=int, default=60)
+    s.add_argument("--ckpt-dir", default=None,
+                   help=f"a FastStyleNet state_dict file, or a dir holding {CKPT_NAME}")
+    s.add_argument("--show", action="store_true")
+    s.set_defaults(fn=cmd_demo)
+
+    s = sub.add_parser("demo-web", help="browser demo: style buttons, strength slider, "
+                                        "resolution and source pickers, snapshot")
+    _add_common(s)
+    s.add_argument("--source", default=None,
+                   help="video path, webcam index, or omit for synthetic")
+    s.add_argument("--method", default="huang", choices=tuple(FASTSTYLE_METHODS))
+    s.add_argument("--n-styles", type=int, default=3)
+    s.add_argument("--ckpt-dir", default=None,
+                   help=f"a FastStyleNet state_dict file, or a dir holding {CKPT_NAME}")
+    s.add_argument("--port", type=int, default=8600)
+    s.add_argument("--max-frames", type=int, default=None, help="stop after N frames")
+    s.set_defaults(fn=cmd_demo_web)
 
     s = sub.add_parser("bench", help="styled frames/s of FastStyleNet at 436x1024")
     s.set_defaults(fn=cmd_bench)

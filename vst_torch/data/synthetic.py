@@ -76,12 +76,13 @@ def warp_affine_linear(image: np.ndarray, m: np.ndarray, dsize) -> np.ndarray:
     fx, fy = (sx - x0)[..., None], (sy - y0)[..., None]
     xi, yi = x0.astype(np.int64), y0.astype(np.int64)
     sh, sw = image.shape[:2]
+    flat = image.reshape(sh * sw, -1)
 
-    def corner(dy, dx):
+    def corner(dy, dx):  # whole pixels gathered by flat index, the warp's largest cost
         yy, xx = yi + dy, xi + dx
-        inside = (xx >= 0) & (xx < sw) & (yy >= 0) & (yy < sh)
-        v = image[np.clip(yy, 0, sh - 1), np.clip(xx, 0, sw - 1)]
-        return np.where(inside[..., None], v, f32(0))
+        v = np.take(flat, np.clip(yy, 0, sh - 1) * sw + np.clip(xx, 0, sw - 1), axis=0)
+        v[(xx < 0) | (xx >= sw) | (yy < 0) | (yy >= sh)] = 0
+        return v
 
     p00, p01, p10, p11 = corner(0, 0), corner(0, 1), corner(1, 0), corner(1, 1)
     top = _fma32(fx, p01 - p00, p00)

@@ -10,7 +10,9 @@ range goes to RAFT unchanged unless ``raft_preprocess`` says otherwise.
 
 Frames are NCHW tensors on the harness's device. DT is timed with CUDA
 events after a ``torch.cuda.synchronize()`` on the card (the reference's
-timer has no sync) and with the host clock on the CPU.
+timer has no sync) and with the host clock on the CPU. With
+``VST_PROFILE_DIR`` set, the evaluation is traced into that directory
+(``vst_torch.core.trace``), each DT block under ``DT/<video>_s<d>``.
 
 ``evaluate_videos_sharded`` (multi-GPU) is not ported yet.
 """
@@ -26,6 +28,7 @@ import torch
 from vst_torch import set_f32_precision
 from vst_torch.core.metrics import aggregate_means, save_json
 from vst_torch.core.timing import chain_ms
+from vst_torch.core.trace import annotate, profile_trace
 from vst_torch.data.fc2 import _read_image
 from vst_torch.ops.flowtools import fbc_mask
 from vst_torch.ops.image import InputPadder
@@ -195,29 +198,30 @@ def evaluate_videos(
     progs = make_tcl_program(stylize_fn, raft_apply, raft_preprocess=raft_preprocess)
     styles = [torch.as_tensor(s, device=device) for s in styles]
 
-    # warm every (resolution, style) stylize before any DT timing
-    if dt_iters > 0:
-        seen_hw = set()
-        for video in videos:
-            hw = video.frames.shape[1:3]
-            if hw in seen_hw:
-                continue
-            seen_hw.add(hw)
-            f0 = frames_to_device(video.frames[:1], device, frame_transform)
-            for style in styles:
-                for _ in range(2):
-                    float(progs[1](f0, style).sum())
+    with profile_trace():  # a no-op unless VST_PROFILE_DIR is set
+        # warm every (resolution, style) stylize before any DT timing
+        if dt_iters > 0:
+            seen_hw = set()
+            for video in videos:
+                hw = video.frames.shape[1:3]
+                if hw in seen_hw:
+                    continue
+                seen_hw.add(hw)
+                f0 = frames_to_device(video.frames[:1], device, frame_transform)
+                for style in styles:
+                    for _ in range(2):
+                        float(progs[1](f0, style).sum())
 
-    tcl_st: Dict[str, float] = {}
-    tcl_lt: Dict[str, float] = {}
-    dt: Dict[str, float] = {}
-    for video in videos:
-        frames = frames_to_device(video.frames, device, frame_transform)
-        for d, style in enumerate(styles):
-            key = f"{video.name}_s{d + 1}"
-            tcl_st[f"TCL-ST_{key}"], tcl_lt[f"TCL-LT_{key}"], dt[f"DT_{key}"] = _eval_one(
-                video, frames, d, style, progs, lt_len, dt_iters, save_frames,
-                out_path, flow_fn, save_transform)
+        tcl_st: Dict[str, float] = {}
+        tcl_lt: Dict[str, float] = {}
+        dt: Dict[str, float] = {}
+        for video in videos:
+            frames = frames_to_device(video.frames, device, frame_transform)
+            for d, style in enumerate(styles):
+                key = f"{video.name}_s{d + 1}"
+                tcl_st[f"TCL-ST_{key}"], tcl_lt[f"TCL-LT_{key}"], dt[f"DT_{key}"] = _eval_one(
+                    video, frames, d, style, progs, lt_len, dt_iters, save_frames,
+                    out_path, flow_fn, save_transform)
 
     nd = (num_domains or len(styles) + 1) - 1
     return aggregate_results({"TCL-ST": tcl_st, "TCL-LT": tcl_lt, "DT": dt}, nd, out_path)
@@ -233,9 +237,10 @@ def _eval_one(video, frames, d, style, progs, lt_len, dt_iters, save_frames,
 
     # DT: the stylize program alone (the reference times only the generator
     # call, sintel_eval.py:210-214); chained, best of 2 windows
-    float(stylize_prog(frames[0:1], style).sum())
-    dt_ms = min(chain_ms(lambda x: stylize_prog(x, style), frames[0:1], dt_iters)
-                for _ in range(2)) if dt_iters > 0 else 0.0
+    with annotate(f"DT/{key}"):
+        float(stylize_prog(frames[0:1], style).sum())
+        dt_ms = min(chain_ms(lambda x: stylize_prog(x, style), frames[0:1], dt_iters)
+                    for _ in range(2)) if dt_iters > 0 else 0.0
 
     def tcl_pair(img, j, i):
         if flow_fn is None:

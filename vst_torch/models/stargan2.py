@@ -18,9 +18,11 @@ coarsest (``model.py:152-165``).
 Initialisation is the reference's ``he_init`` (``core/utils.py:53-60``):
 kaiming normal, fan-in, on every conv and linear weight; zero biases.
 
-The FAN high-pass branch (``masks=``, ``w_hpf > 0``) needs the face
-landmark net of ``vst/models/wing.py``, which is not ported (``ROADMAP.md``
-§1 item 7); the thesis runs ``w_hpf = 0`` (``PARITY.md:65``).
+With ``w_hpf > 0`` the generator has one more down / up level, its
+``AdainResBlk``s return the residual alone, and, given the FAN's masks
+(``vst_torch.models.wing.get_heatmap``), the decoder adds a high-pass of the
+masked encoder activations at 32, 64 and 128 pixels (``model.py:132-186``).
+The thesis runs ``w_hpf = 0`` (``PARITY.md:65``).
 """
 
 from __future__ import annotations
@@ -33,7 +35,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from vst_torch.nn.norm import AdaIN, InstanceNorm
-from vst_torch.ops.image import avg_pool2d, resize_nearest
+from vst_torch.ops.image import avg_pool2d, resize_bilinear, resize_nearest
 
 SQRT2 = math.sqrt(2.0)
 
@@ -100,13 +102,14 @@ class ResBlk(nn.Module):
 
 class AdainResBlk(nn.Module):
     """``model.py:80-117``: AdaIN-modulated residual, optional nearest 2×
-    upsample, a learned 1×1 shortcut on a change of width, out / √2."""
+    upsample, a learned 1×1 shortcut on a change of width, out / √2; with
+    ``w_hpf > 0`` the residual alone (no shortcut, no / √2), though the
+    reference still creates ``conv1x1``, so its checkpoints load."""
 
     def __init__(self, dim_in: int, dim_out: int, style_dim: int = 64, w_hpf: int = 0,
                  upsample: bool = False):
         super().__init__()
-        if w_hpf > 0:
-            raise NotImplementedError(_FAN)
+        self.w_hpf = w_hpf
         self.upsample = upsample
         self.conv1 = nn.Conv2d(dim_in, dim_out, 3, 1, 1)
         self.conv2 = nn.Conv2d(dim_out, dim_out, 3, 1, 1)
@@ -120,37 +123,56 @@ class AdainResBlk(nn.Module):
             h = resize_nearest(h, 2)
         h = self.conv1(h)
         h = self.conv2(_lrelu(self.norm2(h, s)))
+        if self.w_hpf > 0:
+            return h
         sc = resize_nearest(x, 2) if self.upsample else x
         if self.conv1x1 is not None:
             sc = self.conv1x1(sc)
         return (h + sc) / SQRT2
 
 
-_FAN = ("StarGAN v2's high-pass branch (w_hpf > 0, masks) needs the FAN landmark net "
-        "(vst/models/wing.py), which is not ported (ROADMAP.md §1 item 7); the thesis runs "
-        "w_hpf = 0")
+def laplacian(w_hpf: float, dtype=torch.float32, device=None) -> torch.Tensor:
+    """The 3×3 high-pass filter / w_hpf (``model.py:120-125``)."""
+    return torch.tensor([[-1.0, -1.0, -1.0], [-1.0, 8.0, -1.0], [-1.0, -1.0, -1.0]],
+                        dtype=dtype, device=device) / w_hpf
+
+
+def _depthwise(x: torch.Tensor, filt: torch.Tensor) -> torch.Tensor:
+    C = x.shape[1]
+    return F.conv2d(x, filt.to(x.dtype).expand(C, 1, 3, 3), padding=1, groups=C)
 
 
 def high_pass(x: torch.Tensor, w_hpf: float) -> torch.Tensor:
     """``model.py:120-129``: a depthwise 3×3 Laplacian / w_hpf, zero padded."""
-    filt = torch.tensor([[-1.0, -1.0, -1.0], [-1.0, 8.0, -1.0], [-1.0, -1.0, -1.0]],
-                        dtype=x.dtype, device=x.device) / w_hpf
-    C = x.shape[1]
-    return F.conv2d(x, filt.expand(C, 1, 3, 3), padding=1, groups=C)
+    return _depthwise(x, laplacian(w_hpf, x.dtype, x.device))
+
+
+class HighPass(nn.Module):
+    """``model.py:120-129`` as the reference's module: the filter is the
+    buffer ``filter``, so a reference generator's ``hpf.filter`` loads."""
+
+    def __init__(self, w_hpf: float):
+        super().__init__()
+        self.register_buffer("filter", laplacian(w_hpf))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return _depthwise(x, self.filter)
+
+
+HPF_SIZES = (32, 64, 128)  # the activations' heights that take the masked high-pass
 
 
 class Generator(nn.Module):
     """``model.py:132-186``: from_rgb, ``encode`` (downsampling ResBlks, then
     two bottleneck ResBlks), ``decode`` (two bottleneck AdainResBlks, then
     the upsampling ones), to_rgb (affine instance norm, leaky ReLU, 1×1
-    conv). H and W must be multiples of 2^(log2(img_size) − 4)."""
+    conv). H and W must be multiples of 2^(log2(img_size) − 4), one more
+    power of 2 with ``w_hpf > 0``, which adds a level and ``hpf``."""
 
     def __init__(self, img_size: int = 256, style_dim: int = 64, max_conv_dim: int = 512,
                  w_hpf: int = 0):
         super().__init__()
-        if w_hpf > 0:
-            raise NotImplementedError(_FAN)
-        repeat_num = int(math.log2(img_size)) - 4
+        repeat_num = int(math.log2(img_size)) - 4 + (1 if w_hpf > 0 else 0)
         dims = _dims(img_size, max_conv_dim, repeat_num)
         self.from_rgb = nn.Conv2d(3, dims[0], 3, 1, 1)
         self.encode = nn.ModuleList(
@@ -158,22 +180,39 @@ class Generator(nn.Module):
              for i in range(repeat_num)]
             + [ResBlk(dims[-1], dims[-1], normalize=True) for _ in range(2)])
         self.decode = nn.ModuleList(
-            [AdainResBlk(dims[-1], dims[-1], style_dim) for _ in range(2)]
-            + [AdainResBlk(dims[repeat_num - i], dims[repeat_num - 1 - i], style_dim,
+            [AdainResBlk(dims[-1], dims[-1], style_dim, w_hpf) for _ in range(2)]
+            + [AdainResBlk(dims[repeat_num - i], dims[repeat_num - 1 - i], style_dim, w_hpf,
                            upsample=True) for i in range(repeat_num)])
         self.to_rgb = nn.Sequential(InstanceNorm(dims[0]), nn.LeakyReLU(0.2),
                                     nn.Conv2d(dims[0], 3, 1, 1, 0))
         he_init_(self)
+        if w_hpf > 0:
+            self.hpf = HighPass(w_hpf)
 
     def forward(self, x: torch.Tensor, s: torch.Tensor,
                 masks: Optional[Sequence[torch.Tensor]] = None) -> torch.Tensor:
-        if masks is not None:
-            raise NotImplementedError(_FAN)
+        """``masks``: the FAN's (mask, mask2), each (B, 1, H', W'), or None;
+        they need ``w_hpf > 0``. Each downsampling block's input at a height
+        of 32, 64 or 128 is kept, and after the upsampling block that reaches
+        that height, high_pass(mask · kept) is added, the mask (``masks[0]``
+        at 32, ``masks[1]`` above) resized bilinearly to the activation. As
+        vst, the bottleneck blocks take no part (the reference also checks
+        them, which differs only where they run at one of those heights)."""
+        if masks is not None and not hasattr(self, "hpf"):
+            raise ValueError("masks need a generator built with w_hpf > 0")
+        n_down = len(self.encode) - 2
         h = self.from_rgb(x)
-        for block in self.encode:
+        cache = {}
+        for i, block in enumerate(self.encode):
+            if masks is not None and i < n_down and h.shape[2] in HPF_SIZES:
+                cache[h.shape[2]] = h
             h = block(h)
-        for block in self.decode:
+        for i, block in enumerate(self.decode):
             h = block(h, s)
+            if masks is not None and i >= 2 and h.shape[2] in HPF_SIZES:
+                mask = masks[0] if h.shape[2] == 32 else masks[1]
+                mask = resize_bilinear(mask, h.shape[2:])
+                h = h + self.hpf(mask * cache[h.shape[2]])
         return self.to_rgb(h)
 
 
