@@ -67,11 +67,11 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
    relative, every gradient in f64 ≤ 1e-3 relative in L2; the f32
    gradients' difference recorded); VGG16 and FastStyleNet forward and
    backward at 16×3×256×256 on cuDNN and on PyTorch's own convolutions;
-   `vst_torch.cli train-faststyle` for each method at 256², batch 16, 12
+   `vst_torch.cli train-faststyle` for each method at 256², batch 16, 8
    steps from the device cache over a 64-sample FC2-layout corpus written to
    a temporary directory (device step by CUDA events, median after 3
    warm-up steps; images/s; peak memory; every loss finite); Johnson on one
-   fixed batch for 30 steps, its last loss below its first, then 2 steps
+   fixed batch for 20 steps, its last loss below its first, then 2 steps
    under torch.profiler (device busy share, top kernels); Johnson on
    synthetic host batches, the host's batch time beside the step time. The
    training path launches none of the kernels: their counts stay 0.
@@ -86,7 +86,7 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
    below λ = 0, corr_lookup launched); torch.profiler over one full-size
    obst.run in float32 and in bfloat16 (the device's busy share).
 15. fc2_metrics: `vst_torch.cli eval-fc2` at 256² on 4 synthetic batches of
-   4: --family obst (λ 0 and 2000, --iters-pyr 10 10 10, run as 20 closure
+   4: --family obst (λ 0 and 2000, --iters-pyr 5 5 5, run as 10 closure
    calls a level), --family faststyle --method johnson
    (--num-outs 3) and --method ruder; TCL / FID / LPIPS means and the
    seconds split into the metric nets, FID's host math and the rest
@@ -105,12 +105,12 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
    (d_latent, d_ref, g_latent, g_ref) and v1's D and G steps at 32² on the
    card against the CPU (losses f32 ≤ 1e-4 relative, gradients f64 ≤ 1e-8
    relative in L2 per parameter); `train-stargan2` at 256², batch 8, 4
-   domains, AdvCon, 10 iterations from the device cache over a 32-sample
+   domains, AdvCon, 6 iterations from the device cache over a 32-sample
    corpus (`generate_fc2_corpus`, procedural) in f32 and in bf16
    (iteration median after 3 warm-up iterations, images/s, peak memory, every loss finite), one f32
    iteration split by CUDA events into its D steps (R1), G steps and EMA,
    and one under torch.profiler (busy share); `train-stargan` at 128²,
-   batch 16, 10 iterations (2 G steps) from a 128² corpus, the same numbers; `vst_torch.cli
+   batch 16, 6 iterations (1 G step) from a 128² corpus, the same numbers; `vst_torch.cli
    eval-fc2 --family stargan2` (latent and reference) and `--family
    stargan` at 256² on 4 synthetic batches of 4, --num-outs 3, the seconds
    split as in phase 15. The training and FC2 paths launch no kernel.
@@ -120,12 +120,12 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
    ConGAN's E steps and MoGAN's M step with RAFT (4 iterations) at 64²,
    through the kernel on the card against the plain lookup on the CPU
    (losses ≤ 1e-4); `train-cyclegan` for each variant at 256², batch 4,
-   ngf = ndf = 64, RAFT 20 iterations, 10 iterations from the device cache
+   ngf = ndf = 64, RAFT 20 iterations, 6 iterations from the device cache
    over a 32-sample synthetic styled corpus, `--sid 1`, in f32 and, for
    cyclegan and mogan, bf16 (E / M step medians after 3 warm-up iterations,
    images/s, peak memory, every loss finite; `corr_lookup` launched exactly
-   20 × the RAFT calls: MoGAN 1000 (1200 in bf16, whose E step adds the
-   loss's 2 flows of the cast frames), ConGAN 800, the others 0); one E
+   20 × the RAFT calls: MoGAN 600 (720 in bf16, whose E step adds the
+   loss's 2 flows of the cast frames), ConGAN 480, the others 0); one E
    step of MoGAN f32, MoGAN bf16 and cyclegan bf16 split by CUDA events
    into the motion flows, the G step (its RAFT calls apart), the pools and
    the D step, and one under torch.profiler (busy share, launches);
@@ -152,7 +152,7 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
    chairs stage (batch 10, crop 368×496, 12 iterations, γ = 0.8, AdamW lr
    4e-4, weight decay 1e-4, gradient clip 1.0) on batches of FlyingChairs
    with its stage's augmentor over a 384×512 `data/*.ppm` + `*.flo` tree of
-   affine-motion pairs: 13 steps (the median of the last 10 by CUDA events,
+   affine-motion pairs: 9 steps (the median of the last 6 by CUDA events,
    images/s, peak memory, every loss finite, exactly 12 launches and 12
    plain backward passes of the lookup a step), the lookup's forward and
    backward at that shape, one step under torch.profiler; RAFT small (12
@@ -165,7 +165,7 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
    part of the clip the median ms a frame of the host→device copy, the net
    and the device→host copy (CUDA events) and the JPEG (host clock), the
    FPS readout and each request's wall. `vst_torch.cli demo` at 436×1024,
-   48 frames (its JSON line and the video it wrote). The seeded FAN: its
+   24 frames (its JSON line and the video it wrote). The seeded FAN: its
    forward at 1×3×256² (best of 3 windows), its heatmaps against the same
    module on the CPU (max |Δ| ≤ 1e-3 of max |heat|), `get_heatmap` with
    masks at batch 8, and `profile_trace` of a forward (its annotation and
@@ -175,9 +175,27 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
    peak memory, the masks moving the output; `latent_interpolation_video`
    (3 latents × 16 steps through that generator and a mapping net) and
    `make_videos` over the face directories. No kernel is launched.
+21. parallel: `python -m vst_torch.parallel.dryrun 1` on NCCL in a
+   subprocess, started first (exit 0 and vst's line); meanwhile, on a
+   world-size-1 NCCL group in this process (a `file://` store in a
+   temporary directory), the untimed parts: the serial `evaluate_videos` on
+   phase 5's 8-frame 432×1024 clip (Johnson, style 0, RAFT 20 iterations
+   through the kernel); Johnson at 256² × 16, TV on, fed by
+   `prefetch_to_mesh`, 3 updates from the same gradients with and without
+   the gradients' all-reduce (parameters and Adam state bit for bit); the
+   `Checkpointer` saving and restoring FastStyleNet, StarGAN v2's `nets` +
+   `nets_ema` and a CycleGAN `G_A` under the CLI's names (every tensor bit
+   for bit, the restored net's output equal). Once the dry run has ended,
+   the timed parts: `evaluate_videos_sharded` on the same clip against the
+   serial TCL-ST / TCL-LT (≤ 1e-4 relative), the lookup launched exactly 20
+   × the RAFT calls (`launches_by_path` entry `eval_sintel_sharded`), vst's
+   sharded DT (ms an ST pair); the Johnson step's median ms with and without
+   the reductions (CUDA events) and the reduction alone (bytes, ms);
+   StarGAN v2 AdvCon at 256² × 8 the same (its four reductions leave the
+   gradients bit for bit).
 
 Phase names on the command line run only those phases (all of them
-without one). Phases 5–19 each drive one path with the kernels' launch
+without one). Phases 5–19 and 21 each drive one path with the kernels' launch
 counts set to 0 just before it and read just after; a kernel of the path
 that was never launched fails the run. Then each phase's seconds, the
 card's name and power limit (nvidia-smi), the kernels line (a kernel whose
@@ -210,6 +228,7 @@ from vst_torch.cli.__main__ import (RAFT_VARIANTS, source_frames, stylize_frames
 from vst_torch.cli.__main__ import synthetic_clip as cli_synthetic_clip
 from vst_torch.cli.__main__ import main as cli_main
 from vst_torch.cli.__main__ import parser as cli_parser
+from vst_torch.core.checkpoint import LAYOUTS, Checkpointer
 from vst_torch.core.roofline import PEAK_BYTES_PER_S, PEAK_F32_OPS_PER_S
 from vst_torch.cli.webdemo import WebDemo
 from vst_torch.cli.webdemo import make_handler as make_web_handler
@@ -222,7 +241,10 @@ from vst_torch.eval.drivers import (evaluate_sintel_cyclegan, evaluate_sintel_fa
                                     evaluate_sintel_ruder,
                                     evaluate_sintel_stargan, evaluate_sintel_stargan2,
                                     faststyle_stylize_fn, stargan2_styles)
-from vst_torch.eval.sintel import SintelVideo, make_tcl_program
+from vst_torch.eval.sintel import (SintelVideo, evaluate_videos, evaluate_videos_sharded,
+                                   make_tcl_program)
+from vst_torch.data.loader import prefetch_to_mesh
+from vst_torch.parallel.mesh import all_reduce_gradients, create_mesh, initialize_distributed
 from vst_torch.data.synthetic import _scene as scene
 from vst_torch.eval.video import latent_interpolation_video, make_videos, write_png
 from vst_torch.flow.corr import build_pyramid, lookup_pyramid
@@ -250,7 +272,7 @@ from vst_torch.nn.conv import cudnn_enabled
 from vst_torch.ops.image import InputPadder
 from vst_torch.perceptual.vgg import Vgg16Features, he_randomized_
 from vst_torch.probes import bisect_im2col, bisect_kernel_cost, bisect_mxu
-from vst_torch.train.faststyle import FastStyleTrainer
+from vst_torch.train.faststyle import FastStyleTrainer, batch_to_tensors
 from vst_torch.train.cyclegan import CycleGANConfig, CycleGANTrainer, cyclegan_batch
 from vst_torch.train.parity import (cyclegan_steps, grad_errors, max_loss_rel_err, param_errors,
                                     raft_sequence_step, raft_train_inputs, stargan2_steps,
@@ -286,10 +308,10 @@ KERNEL_SOURCES = ("corr_lookup", "pad_conv3x3", "gemm_rate")
 OPS_PER_OUTPUT = 17
 TRAIN_HW = (256, 256)  # train-faststyle at the README's size and batch
 TRAIN_BATCH = 16
-TRAIN_STEPS = 12  # cut from 20 for the full run's time (PERF.md §6)
+TRAIN_STEPS = 8  # cut from 20 (PR 11) and 12 (PR 13) for the full run's time (PERF.md §6)
 TRAIN_CORPUS = 64
-LEARN_STEPS = 30
-HOST_STEPS = 6
+LEARN_STEPS = 20  # cut from 30 (PR 13) for the full run's time (PERF.md §6)
+HOST_STEPS = 4  # cut from 6 (PR 13)
 TRAIN_LOSS_RTOL = 1e-4  # card against CPU, f32
 TRAIN_GRAD_RTOL = 1e-3  # card against CPU, f64, L2 per parameter
 OBST_IMAGE_RTOL = 1e-8  # card against CPU, one level in f64
@@ -298,12 +320,13 @@ METRIC_RTOL = 1e-4  # InceptionV3 activations and LPIPS, card against CPU, f32
 OBST_FRAMES = 6  # TCL-LT needs a frame past the offset of 5
 FC2_HW = (256, 256)
 FC2_SEED = 14
-FC2_OBST_ITERS = (10, 10, 10)  # cut from [50, 40, 30] for the full run's time (PERF.md §6)
+FC2_OBST_ITERS = (5, 5, 5)  # cut from [50, 40, 30] (PR 11) and 10s (PR 13) (PERF.md §6)
 GAN_LOSS_RTOL = 1e-4  # card against CPU, f32
 GAN_GRAD_RTOL = 1e-8  # card against CPU, f64, L2 per parameter
 SG2_HW, SG2_BATCH = (256, 256), 8  # the README's StarGAN v2 configuration, 4 domains
 SG1_HW, SG1_BATCH = (128, 128), 16
-GAN_ITERS = 10
+GAN_ITERS = 6  # cut from 10 (PR 13) for the full run's time (PERF.md §6)
+GAN_DT_ITERS = 10  # the GAN eval-sintel's DT chain, cut from 20 (PR 13) as GAN_ITERS
 GAN_CORPUS = 32
 CG_HW, CG_BATCH = (256, 256), 4  # the repo's CycleGAN runs (scripts/train_queue.sh:36-49)
 CG_VARIANTS = ("cyclegan", "cyclegan_con", "mogan", "congan")
@@ -1158,7 +1181,7 @@ def obst_closure_loss(device, hw=(64, 64), seed=1):
         return obst._loss(x, obst.style_targets[0], feats, warp_img, mask, 2000.0).item()
 
 
-def profile_call(fn, walls=3):
+def profile_call(fn, walls=2):
     """``fn``, which each caller has run before at these shapes: ``walls``
     calls timed by the host clock between two synchronize() calls (their
     median ``wall_ms`` and range), then one more under torch.profiler,
@@ -1450,7 +1473,7 @@ def sintel_tree():
 
 def stargan2_split(dev, corpus):
     """One f32 iteration at the full configuration split by CUDA events into
-    its D steps (R1), G steps and EMA (after 2 warm-up iterations), then one
+    its D steps (R1), G steps and EMA (after a warm-up iteration), then one
     more under torch.profiler (profile_call: kernel time, busy share)."""
     from vst_torch.data.device_cache import DeviceStyledCache
     from vst_torch.train.stargan2 import gan_batch
@@ -1459,8 +1482,7 @@ def stargan2_split(dev, corpus):
                               device=dev)
     cache = DeviceStyledCache(corpus, num_dom=4, seed=1, device=dev)
     batch = gan_batch(cache.sample(SG2_BATCH), dev)
-    for _ in range(2):
-        trainer.train_iteration(batch)
+    trainer.train_iteration(batch)  # warm-up
     z, _ = trainer.draw_latents(SG2_BATCH)
     args = (batch["x_real"], batch["y_org"], batch["y_trg"], z, batch["x_ref"])
     parts = {"d_steps_r1": lambda: [trainer.d_step(k, *args) for k in ("latent", "ref")],
@@ -1492,7 +1514,7 @@ def phase_stargan(dev):
         with tempfile.TemporaryDirectory() as out_dir:
             t1 = time.perf_counter()
             res = cli_main(["eval-sintel", "--family", family, "--sintel-dir", sintel.name,
-                            "--out-dir", out_dir])
+                            "--dt-iters", str(GAN_DT_ITERS), "--out-dir", out_dir])
             seconds = time.perf_counter() - t1
         launches[family] = corr_lookup.launches
         require_launches(launches, (family,), "eval-sintel --family")
@@ -1567,8 +1589,8 @@ def cyclegan_raft_card_vs_cpu(dev):
 
 
 def cyclegan_split(dev, corpus, variant, compute_dtype=None):
-    """One E step of ``variant`` at 256² × 4 split by CUDA events (after 2
-    iterations of warm-up): for MoGAN the motion flows (2 RAFT calls, M_A,
+    """One E step of ``variant`` at 256² × 4 split by CUDA events (after an E
+    step of warm-up): for MoGAN the motion flows (2 RAFT calls, M_A,
     M_B), the G step (its RAFT calls apart), the pools and the D step; then
     one E step under torch.profiler (profile_call: busy share, launches)."""
     from vst_torch.data.device_cache import DeviceStyledCache
@@ -1580,8 +1602,7 @@ def cyclegan_split(dev, corpus, variant, compute_dtype=None):
                               device=dev)
     cache = DeviceStyledCache(corpus, num_dom=2, seed=1, device=dev)
     batch = cyclegan_batch(cache.sample_cyclegan(CG_BATCH, 1), dev)
-    for i in range(2):
-        trainer.train_iteration(i, batch)
+    trainer.train_iteration(0, batch)  # warm-up
     trainer.raft = spans.wrap("raft_ms", raft)
     parts = ("motion_aux", "g_step", "query_pools", "d_step")
     for name in parts if variant == "mogan" else parts[1:]:
@@ -1655,7 +1676,8 @@ def phase_cyclegan(dev):
         with tempfile.TemporaryDirectory() as out_dir:
             t1 = time.perf_counter()
             res = cli_main(["eval-sintel", "--family", "cyclegan", "--sintel-dir", sintel.name,
-                            "--ckpt-dir", specs, "--out-dir", out_dir])
+                            "--ckpt-dir", specs, "--dt-iters", str(GAN_DT_ITERS),
+                            "--out-dir", out_dir])
             seconds = time.perf_counter() - t1
         sintel.cleanup()
         counts = kernel_launches()
@@ -1698,7 +1720,7 @@ def partial_masks(out, what):
     return mean
 RT_BATCH, RT_CROP, RT_ITERS = 10, (368, 496), 12  # RAFT's chairs stage (train_standard.sh)
 RT_LR, RT_WDECAY, RT_CLIP, RT_GAMMA = 4e-4, 1e-4, 1.0, 0.8
-RT_STEPS, RT_WARMUP = 10, 3
+RT_STEPS, RT_WARMUP = 6, 3  # RT_STEPS cut from 10 (PR 13)
 CHAIRS_HW, CHAIRS_PAIRS = (384, 512), 16  # FlyingChairs' own frame size
 RT_LOSS_RTOL = 1e-4  # card against CPU, f32
 RT_GRAD_RTOL = 1e-8  # card against CPU, f64, L2 per parameter
@@ -1746,7 +1768,7 @@ def corpus_reads(root, dev):
 def obst_batch(dev, root):
     """One OBST batch of ``DG_BATCH`` corpus frames at 256² as datagen-corpus
     runs it (style 0, [30, 25, 20]) through profile_call: its seconds (the
-    median of 3 calls by the host clock between two synchronize() calls, the
+    median of 2 calls by the host clock between two synchronize() calls, the
     styled images copied back) and the device's busy share."""
     from vst_torch.data.datagen import _stylize_batch
 
@@ -2036,6 +2058,7 @@ def phase_raft_train(dev):
 
 
 DEMO_STYLES, DEMO_FRAMES = 3, 48  # Huang's 3 styles; the web demo's 48-frame synthetic clip
+DEMO_CLI_FRAMES = 24  # the demo command's frames, cut from 48 (PR 13)
 FAN_HW, FAN_BATCH = 256, 8
 FAN_CARD_RTOL = 1e-3  # FAN heatmaps card against CPU, f32 with TF32 off, of max |heat|
 ALIGN_IMAGES = 8
@@ -2181,10 +2204,10 @@ def phase_demos(dev):
         record["seconds"]["demo_web"] = time.perf_counter() - t0
 
         t0 = time.perf_counter()
-        line = cli_main(["demo", "--hw", *map(str, SINTEL_HW), "--n-frames", str(DEMO_FRAMES),
+        line = cli_main(["demo", "--hw", *map(str, SINTEL_HW), "--n-frames", str(DEMO_CLI_FRAMES),
                          "--out-dir", os.path.join(tmp, "demo")])
         kind = video_signature(line["video"])
-        if line["frames"] != DEMO_FRAMES or line["hw"] != list(SINTEL_HW) or kind is None:
+        if line["frames"] != DEMO_CLI_FRAMES or line["hw"] != list(SINTEL_HW) or kind is None:
             raise AssertionError(f"demo: {line}, file kind {kind}")
         record["demo"] = {**line, "kind": kind, "bytes": os.path.getsize(line["video"]),
                           "wall_s": time.perf_counter() - t0}
@@ -2262,6 +2285,252 @@ def phase_demos(dev):
     emit(record)
 
 
+PAR_TRAIN_STEPS = 3  # updates bit for bit against the plain trainer's
+PAR_TIMED_STEPS = 6  # Johnson steps timed a trainer
+PAR_V2_BATCH = 8
+PAR_V2_TIMED = 2  # StarGAN v2 iterations timed a trainer
+PAR_TCL_RTOL = 1e-4  # sharded against serial TCL
+DRYRUN_TIMEOUT_S = 300
+
+
+def step_ms(fn, n):
+    """Each of ``n`` calls of fn() timed by CUDA events: (median ms, all)."""
+    marks = []
+    for _ in range(n):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        marks.append((a, b))
+    torch.cuda.synchronize()
+    ms = [a.elapsed_time(b) for a, b in marks]
+    return float(np.median(ms)), ms
+
+
+def same_tensors(got, want, what):
+    """Every tensor of two state_dicts equal bit for bit."""
+    if set(got) != set(want):
+        raise AssertionError(f"{what}: keys differ")
+    diff = [k for k in want if not torch.equal(got[k].cpu(), want[k].cpu())]
+    if diff:
+        raise AssertionError(f"{what}: {len(diff)} tensors differ, first {diff[0]}")
+    return len(want)
+
+
+def adam_state(opt):
+    return {f"{i}.{k}": v for i, st in enumerate(opt.state.values()) for k, v in st.items()}
+
+
+def johnson_same_gradients(plain, reduced, batches, steps):
+    """``steps`` updates of two Johnson trainers from the same gradients:
+    the plain trainer's loss and backward on each batch, its gradients
+    copied to ``reduced``, then each trainer's ``apply_gradients`` (the
+    reduced one's all-reduces first). The card's backward is not bit for
+    bit between two runs (reflection pad's and grid_sample's backward add
+    with atomics), so both updates take one backward's gradients."""
+    for _ in range(steps):
+        batch = next(batches)
+        plain.opt.zero_grad(set_to_none=True)
+        with cudnn_enabled(True):
+            loss, _ = plain.loss_fn(batch)
+            loss.backward()
+        for p, q in zip(plain.model.parameters(), reduced.model.parameters()):
+            q.grad = p.grad.clone()
+        plain.apply_gradients()
+        reduced.apply_gradients()
+
+
+def check_checkpoints(tmp, trees_by_layout):
+    """Each (layout, step, trees) saved and restored by the Checkpointer;
+    every tensor bit for bit. Returns {first file: files, tensors, bytes}."""
+    out = {}
+    for layout, step, trees in trees_by_layout:
+        ckpt = Checkpointer(os.path.join(tmp, "ckpt"), layout)
+        paths = ckpt.save(step, **trees)
+        back = ckpt.restore(step, **{k: None for k in trees})
+        n = 0
+        for name, tree in trees.items():
+            nested = all(isinstance(v, dict) for v in tree.values())
+            flat = lambda t: ({f"{a}.{k}": v for a, sd in t.items()  # noqa: E731
+                               for k, v in sd.items()} if nested else t)
+            n += same_tensors(flat(back[name]), flat(tree), f"checkpoint {name}")
+        out[os.path.basename(paths[0])] = {"files": [os.path.basename(p) for p in paths],
+                                           "tensors": n,
+                                           "bytes": sum(os.path.getsize(p) for p in paths)}
+    return out
+
+
+def phase_parallel(dev):
+    """The NCCL dry run in a subprocess, started first; meanwhile, on a
+    world-size-1 NCCL group in this process, the untimed parts (the serial
+    evaluation, Johnson's updates from the same gradients, the warm-ups,
+    the Checkpointer's round trips); once the dry run has ended, the timed
+    parts (the sharded evaluation, the Johnson steps and StarGAN v2
+    iterations with and without the reductions, the reductions alone)."""
+    t_phase = time.perf_counter()
+    record = {"phase": "parallel"}
+    dryrun = subprocess.Popen([sys.executable, "-m", "vst_torch.parallel.dryrun", "1"],
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                              cwd=os.path.dirname(os.path.abspath(__file__)))
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            initialize_distributed(f"file://{os.path.join(tmp, 'pg')}", 1, 0, device="cuda")
+            try:
+                mesh = create_mesh(devices=[dev])
+                record["world_size"] = mesh.size
+                record["backend"] = torch.distributed.get_backend()
+
+                # untimed: the serial harness on the main path's clip
+                style_net = seeded_style_net(dev)
+                stylize = faststyle_stylize_fn(style_net, style_net.state_dict())
+                raft = seeded_raft(20, dev)
+                calls = [0]
+
+                def raft_apply(a, b):
+                    calls[0] += 1
+                    return raft(a, b)
+
+                video = SintelVideo("synthetic", synthetic_clip(8, CLIP_HW, seed=3))
+                to_range = lambda f: f * 2.0 - 1.0  # noqa: E731 (feed-forward pipeline range)
+                serial = evaluate_videos([video], stylize, raft_apply, styles=[0], dt_iters=2,
+                                         frame_transform=to_range, device=dev)
+                # one sharded pair warms the batch-1 RAFT and stylize, which the
+                # serial harness (RAFT at batch 2 and 4) does not run
+                evaluate_videos_sharded([SintelVideo("warm-up", video.frames[:2])], stylize,
+                                        raft_apply, [0], mesh, frame_transform=to_range)
+
+                # untimed: Johnson at 256² × 16 (TV on) fed by prefetch_to_mesh, 3
+                # updates from the same gradients with and without the reduction
+                styles = load_style_images(size=256)[:1]
+                rng = np.random.RandomState(0)
+                host = batch_to_tensors({"imgs": rng.rand(TRAIN_BATCH, 2, *TRAIN_HW, 3),
+                                         "masks": np.ones((TRAIN_BATCH, 1, *TRAIN_HW, 1)),
+                                         "flows": np.zeros((TRAIN_BATCH, 1, *TRAIN_HW, 2))},
+                                        "cpu")
+                plain, dp = (FastStyleTrainer(select_method("johnson", batch_size=TRAIN_BATCH),
+                                              styles, seed=0, device=dev, mesh=m)
+                             for m in (None, mesh))
+                feed = prefetch_to_mesh(iter([host] * (PAR_TRAIN_STEPS + 1)), mesh)
+                johnson_same_gradients(plain, dp, feed, PAR_TRAIN_STEPS)
+                n_johnson = same_tensors(dp.model.state_dict(), plain.model.state_dict(),
+                                         "Johnson at world size 1")
+                n_johnson += same_tensors(adam_state(dp.opt), adam_state(plain.opt),
+                                          "Johnson's Adam at world size 1")
+                batch = next(feed)
+                for t in (plain, dp):
+                    t.train_step(batch)  # warm-up
+
+                # untimed: StarGAN v2 AdvCon at 256² × 8, both trainers warmed up
+                B = PAR_V2_BATCH
+                gb = {"x_real": torch.rand(B, 3, *TRAIN_HW) * 2 - 1,
+                      "x_real2": torch.rand(B, 3, *TRAIN_HW) * 2 - 1,
+                      "x_ref": torch.rand(B, 3, *TRAIN_HW) * 2 - 1,
+                      "y_org": torch.randint(0, 4, (B,)), "y_trg": torch.randint(0, 4, (B,)),
+                      "mask": torch.ones(B, 1, *TRAIN_HW), "flow": torch.zeros(B, 2, *TRAIN_HW)}
+                cfg2 = StarGAN2Config(img_size=TRAIN_HW[0], num_domains=4, lambda_tcl=100.0)
+                gbatch = next(prefetch_to_mesh(iter([gb]), mesh))
+                p2, d2 = (StarGAN2Trainer(cfg2, seed=0, device=dev, mesh=m) for m in (None, mesh))
+                for t in (p2, d2):
+                    t.train_iteration(gbatch)  # warm-up
+
+                # untimed: the Checkpointer on the card, every tensor bit for bit
+                torch.manual_seed(0)
+                g_a = ResnetGenerator(3, 3, 64, 9).to(dev)
+                ck = check_checkpoints(tmp, (
+                    (LAYOUTS["faststyle"], None, {"model": dp.model.state_dict()}),
+                    (LAYOUTS["stargan2"], 1, {"nets": d2.state_dicts(),
+                                              "nets_ema": d2.state_dicts(use_ema=True)}),
+                    (LAYOUTS["cyclegan"], 1, {"G_A": g_a.state_dict()})))
+                restored = Checkpointer(os.path.join(tmp, "ckpt"), LAYOUTS["faststyle"]).restore(
+                    None, model=FastStyleNet(3, 1))["model"].to(dev).eval()
+                x = torch.rand(1, 3, *SINTEL_HW, device=dev)
+                sid = torch.tensor(0, device=dev)
+                with torch.no_grad():
+                    if not torch.equal(restored(x, 1.0, sid)[1], dp.model.eval()(x, 1.0, sid)[1]):
+                        raise AssertionError("the restored FastStyleNet's output differs")
+                dp.model.train()
+                record["checkpointer"] = {**ck, "restored_output_equal": True}
+                del restored, g_a
+
+                out, err = dryrun.communicate(timeout=DRYRUN_TIMEOUT_S)
+                if dryrun.returncode != 0 or not out.startswith("dryrun_multichip(1): ok"):
+                    raise AssertionError(f"dryrun 1: rc {dryrun.returncode}: {out[-500:]} "
+                                         f"{err[-1500:]}")
+                record["dryrun"] = {"rc": dryrun.returncode, "line": out.strip(),
+                                    "ended_after_s": time.perf_counter() - t_phase}
+
+                # timed, the dry run over: the sharded evaluation
+                torch.cuda.synchronize()
+                reset_counts()
+                calls[0] = 0
+                t0 = time.perf_counter()
+                sharded = evaluate_videos_sharded([video], stylize, raft_apply, [0], mesh,
+                                                  frame_transform=to_range)
+                eval_s = time.perf_counter() - t0
+                launches = corr_lookup.launches
+                if launches != 20 * calls[0] or calls[0] != 2 * (7 + 3):
+                    raise AssertionError(f"sharded evaluation: {launches} launches, "
+                                         f"{calls[0]} RAFT calls")
+                rel = {}
+                for kind in TCL_KEYS:
+                    want, got = serial[kind][f"{kind}_mean"], sharded[kind][f"{kind}_mean"]
+                    rel[kind] = abs(got - want) / abs(want)
+                    if not (math.isfinite(got) and rel[kind] <= PAR_TCL_RTOL):
+                        raise AssertionError(f"sharded {kind} {got} against serial {want}")
+                record["eval_sintel_sharded"] = {
+                    "clip": [8, *CLIP_HW], "raft_iters": 20, "styles": [0],
+                    "tcl": {k: sharded[k][f"{k}_mean"] for k in TCL_KEYS},
+                    "serial_tcl": {k: serial[k][f"{k}_mean"] for k in TCL_KEYS},
+                    "max_rel_err": rel, "DT_ms_per_st_pair": sharded["DT"]["DT_mean"],
+                    "raft_calls": calls[0], "corr_lookup_launches": launches, "wall_s": eval_s}
+                del raft
+
+                # timed: Johnson's steps, then the reduction alone
+                timed = {name: step_ms(lambda t=t: t.train_step(batch), PAR_TIMED_STEPS)
+                         for name, t in (("plain", plain), ("reduced", dp))}
+                record["johnson_step"] = {
+                    "hw": list(TRAIN_HW), "batch": TRAIN_BATCH, "tv": dp.cfg.emphasis[2],
+                    "bit_for_bit_after_updates": PAR_TRAIN_STEPS, "tensors_equal": n_johnson,
+                    "step_ms_median": timed["plain"][0],
+                    "reduced_step_ms_median": timed["reduced"][0],
+                    "step_ms": timed["plain"][1], "reduced_step_ms": timed["reduced"][1],
+                    "reduction_bytes": all_reduce_gradients([dp.opt], mesh),
+                    "reduction_ms": time_ms(lambda: all_reduce_gradients([dp.opt], mesh))}
+                del plain, dp, feed
+
+                # timed: StarGAN v2's iterations; its four reductions (D twice,
+                # G + F + E, G) leave the gradients bit for bit at world size 1
+                timed = {name: step_ms(lambda t=t: t.train_iteration(gbatch), PAR_V2_TIMED)
+                         for name, t in (("plain", p2), ("reduced", d2))}
+                sets = ([d2.opts["disc"]], [d2.opts["disc"]],
+                        [d2.opts[k] for k in ("generator", "mapping", "style_enc")],
+                        [d2.opts["generator"]])
+                grads = lambda: {f"{k}.{n}": p.grad for k, net in d2.nets.items()  # noqa: E731
+                                 for n, p in net.named_parameters() if p.grad is not None}
+                before = {k: g.clone() for k, g in grads().items()}
+                v2_bytes = sum(all_reduce_gradients(o, mesh) for o in sets)
+                record["stargan2_iteration"] = {
+                    "hw": list(TRAIN_HW), "batch": B, "lambda_tcl": cfg2.lambda_tcl,
+                    "gradients_equal_after_reduction": same_tensors(
+                        grads(), before, "StarGAN v2's gradients through the reduction"),
+                    "iteration_ms_median": timed["plain"][0],
+                    "reduced_iteration_ms_median": timed["reduced"][0],
+                    "iteration_ms": timed["plain"][1], "reduced_iteration_ms": timed["reduced"][1],
+                    "reduction_bytes": v2_bytes,
+                    "reduction_ms": sum(time_ms(lambda o=o: all_reduce_gradients(o, mesh), 5, 1)
+                                        for o in sets)}
+                del p2, d2, before
+            finally:
+                torch.distributed.destroy_process_group()
+    finally:
+        if dryrun.poll() is None:
+            dryrun.kill()
+            dryrun.communicate()
+    record["seconds"] = time.perf_counter() - t_phase
+    emit(record)
+    return {"eval_sintel_sharded": launches}
+
+
 def kernel_entries(name, source, replaces, measured):
     """The kernels line's entries of one kernel, one per variant."""
     return [{"name": f"{name}_{variant}", "route": "cuda", "source": source,
@@ -2283,7 +2552,8 @@ def per_conv(measured):
 
 PHASES = ("build", "kernel", "stylize", "raft", "main_path", "eval_sintel", "raft_bf16",
           "stylize_video", "trunk_conv", "kernel_cost", "gemm_rate", "bench", "train_faststyle",
-          "obst", "fc2_metrics", "stargan", "cyclegan", "datagen", "raft_train", "demos")
+          "obst", "fc2_metrics", "stargan", "cyclegan", "datagen", "raft_train", "demos",
+          "parallel")
 
 
 def null_entries(name, source, replaces, variants):
@@ -2343,6 +2613,7 @@ def main(argv=None) -> int:
     by_path.update(run("datagen", phase_datagen, dev) or {})
     by_path.update(run("raft_train", phase_raft_train, dev) or {})
     run("demos", phase_demos, dev)
+    by_path.update(run("parallel", phase_parallel, dev) or {})
     emit({"phase_seconds": seconds, "total_s": sum(seconds.values())})
 
     smi = subprocess.run(["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",

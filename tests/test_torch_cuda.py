@@ -430,3 +430,39 @@ def test_precompute_lt_flow_through_the_kernel_matches_plain_lookup(dev):
         assert 0.0 < b[..., 2].mean() < 1.0
         np.testing.assert_allclose(a[..., :2], b[..., :2], atol=1e-3, rtol=0)
         np.testing.assert_array_equal(a[..., 2], b[..., 2])
+
+
+def test_world_size_one_nccl_step_is_the_plain_step(dev, tmp_path):
+    """With an NCCL group of one rank a Johnson trainer's update (the
+    gradients' all-reduce, then Adam) is the plain trainer's bit for bit
+    over 3 updates from the same gradients (the card's backward itself is
+    not bit for bit between runs: reflection pad's backward adds with
+    atomics), and a whole reduced step runs and returns finite terms."""
+    from vst_torch.data.styles import load_style_images
+    from vst_torch.data.synthetic import synthetic_batch
+    from vst_torch.parallel.mesh import create_mesh, initialize_distributed
+    from vst_torch.train.faststyle import FastStyleTrainer, batch_to_tensors
+    from vst_torch.train.registry import select_method
+
+    batches = [batch_to_tensors(synthetic_batch(2, hw=(64, 64), n_frames=2, seed=s), dev)
+               for s in range(3)]
+    initialize_distributed(f"file://{tmp_path}/pg", 1, 0, device="cuda")
+    try:
+        plain, reduced = (FastStyleTrainer(select_method("johnson", batch_size=2),
+                                           load_style_images(size=64)[:1], seed=0, device=dev,
+                                           mesh=mesh)
+                          for mesh in (None, create_mesh(devices=[dev])))
+        for batch in batches:
+            plain.opt.zero_grad(set_to_none=True)
+            plain.loss_fn(batch)[0].backward()
+            for p, q in zip(plain.model.parameters(), reduced.model.parameters()):
+                q.grad = p.grad.clone()
+            plain.apply_gradients()
+            reduced.apply_gradients()
+        same = [torch.equal(reduced.model.state_dict()[k], v)
+                for k, v in plain.model.state_dict().items()]
+        terms = reduced.train_step(batches[0])
+    finally:
+        torch.distributed.destroy_process_group()
+    assert all(same), f"{same.count(False)} tensors differ"
+    assert all(torch.isfinite(v).all() for v in terms.values())

@@ -185,7 +185,6 @@ from __future__ import annotations
 import argparse
 import json
 import os
-import re
 import time
 from typing import Callable, Dict, Sequence, Tuple
 
@@ -193,6 +192,7 @@ import numpy as np
 import torch
 
 from vst_torch import bench, set_f32_precision
+from vst_torch.core.checkpoint import LAYOUTS, Checkpointer
 from vst_torch.core.metrics import MetricsLogger
 from vst_torch.core.timing import windows_ms
 from vst_torch.data.device_cache import DeviceFC2Cache, DeviceStyledCache
@@ -229,7 +229,7 @@ RAFT_VARIANTS = {"f32": (None, None, 8), "bf16_enc": (BF16, None, 8),
                  "bf16_full": (BF16, BF16, 8), "f32_pad64": (None, None, 64),
                  "bf16_full_pad64": (BF16, BF16, 64)}
 SLOPE_VARIANTS = ("f32", "bf16_full_pad64")
-CKPT_NAME = "model.pt"  # train-faststyle's checkpoint in --out-dir
+CKPT_NAME = LAYOUTS["faststyle"].format(name="model")  # train-faststyle's in --out-dir
 WARMUP_STEPS = 3  # train-faststyle's steps left out of the median step time
 
 
@@ -255,12 +255,10 @@ def synthetic_clip(hw, n_frames: int, seed: int):
 
 
 def load_state(path: str) -> Dict[str, torch.Tensor]:
-    """A torch ``state_dict`` file, with a DataParallel ``module.`` prefix
-    stripped and batch norms' ``num_batches_tracked`` dropped, as vst's
-    converters do (eval-mode nets do not read it)."""
-    sd = torch.load(path, map_location="cpu")
-    return {k.removeprefix("module."): v for k, v in sd.items()
-            if not k.endswith("num_batches_tracked")}
+    """A torch checkpoint file of any name through the ``Checkpointer``: a
+    ``state_dict`` with a DataParallel ``module.`` prefix stripped and batch
+    norms' ``num_batches_tracked`` dropped, or a dict of them."""
+    return Checkpointer.file(path).restore(None, state=None)["state"]
 
 
 @torch.no_grad()
@@ -349,7 +347,7 @@ def stargan2_eval_nets(args, cfg: StarGAN2Config, device: torch.device):
     ``_nets_ema.ckpt`` dict of state_dicts) or a seeded trainer's (its EMA
     copies of the initial nets, as vst's ``state.ema``)."""
     if args.ckpt_dir:
-        return nets_from_state_dicts(cfg, torch.load(args.ckpt_dir, map_location="cpu"), device)
+        return nets_from_state_dicts(cfg, load_state(args.ckpt_dir), device)
     return {k: net.eval() for k, net in StarGAN2Trainer(cfg, args.seed, device).ema.items()}
 
 
@@ -373,11 +371,11 @@ def cyclegan_eval_generators(ckpt_dirs: str, device: torch.device):
         variant, _, d = spec.rpartition(":")
         if (variant or "cyclegan") not in VARIANTS:
             raise SystemExit(f"--ckpt-dir: unknown variant {variant!r}")
-        steps = [int(m.group(1)) for f in os.listdir(d)
-                 if (m := re.fullmatch(r"(\d+)_net_G_A\.pth", f))]
+        ckpt = Checkpointer(d, LAYOUTS["cyclegan"])
+        steps = [step for step, name in ckpt.entries() if name == "G_A"]
         if not steps:
             raise SystemExit(f"--ckpt-dir: no <step>_net_G_A.pth in {d}")
-        sd = load_state(os.path.join(d, f"{max(steps)}_net_G_A.pth"))
+        sd = ckpt.restore(max(steps), G_A=None)["G_A"]
         n_blocks = len({k.split(".")[1] for k in sd if ".conv_block." in k})
         g = ResnetGenerator(3, 3, sd["model.1.weight"].shape[0], n_blocks)
         g.load_state_dict(sd)
@@ -695,7 +693,7 @@ def cmd_train_faststyle(args) -> Dict:
     source, batches = _train_batches(args, cfg.n_frames, device)
     os.makedirs(args.out_dir, exist_ok=True)
     logger = MetricsLogger(os.path.join(args.out_dir, "losses.txt"))
-    ckpt = os.path.join(args.out_dir, CKPT_NAME)
+    ckpt = Checkpointer(args.out_dir, LAYOUTS["faststyle"])
     sids = np.random.RandomState(args.seed)
     timer = _StepTimer(device)
     batch_ms, losses = [], []
@@ -720,7 +718,7 @@ def cmd_train_faststyle(args) -> Dict:
             print(f"[{i + 1}/{args.steps}] " + " ".join(
                 f"{k}: {float(v):.4f}" for k, v in metrics.items()), flush=True)
         if (i + 1) % args.ckpt_every == 0 or i + 1 == args.steps:
-            torch.save(trainer.model.state_dict(), ckpt)
+            ckpt.save(None, model=trainer.model)
         if i + 1 < args.steps:
             batch = next_batch()
     step_ms = timer.ms()
@@ -736,7 +734,8 @@ def cmd_train_faststyle(args) -> Dict:
             "peak_mem_gib": (torch.cuda.max_memory_allocated(device) / 2 ** 30
                              if device.type == "cuda" else None),
             "first_loss": losses[0], "last_loss": losses[-1],
-            "n_nonfinite": int(sum(not np.isfinite(v) for v in losses)), "checkpoint": ckpt}
+            "n_nonfinite": int(sum(not np.isfinite(v) for v in losses)),
+            "checkpoint": ckpt.path(None, "model")}
     print(json.dumps(line))
     return {**line, "losses": losses, "step_ms": step_ms, "batch_ms": batch_ms}
 
@@ -840,10 +839,8 @@ def cmd_train_stargan2(args) -> Dict:
     source, batches = _gan_batches(args, device, multidomain=False)
 
     def checkpoint(step):
-        paths = [os.path.join(args.out_dir, f"{step:06d}_nets{tag}.ckpt") for tag in ("", "_ema")]
-        for path, use_ema in zip(paths, (False, True)):
-            torch.save(trainer.state_dicts(use_ema), path)
-        return paths
+        return Checkpointer(args.out_dir, LAYOUTS["stargan2"]).save(
+            step, nets=trainer.state_dicts(), nets_ema=trainer.state_dicts(use_ema=True))
 
     def sample_grid(step, batch):
         """The EMA nets' debug grid (core/utils.py:122-148)."""
@@ -877,10 +874,7 @@ def cmd_train_stargan(args) -> Dict:
         return trainer.train_iteration(i, b["x_real"], c_org, c_trg)
 
     def checkpoint(step):
-        paths = [os.path.join(args.out_dir, f"{step}-{name}.ckpt") for name in ("G", "D")]
-        torch.save(trainer.G.state_dict(), paths[0])
-        torch.save(trainer.D.state_dict(), paths[1])
-        return paths
+        return Checkpointer(args.out_dir, LAYOUTS["stargan"]).save(step, G=trainer.G, D=trainer.D)
 
     line = _gan_loop(args, device, source, batches, iteration, checkpoint)
     return _report({"family": "stargan", "n_critic": cfg.n_critic,
@@ -940,12 +934,8 @@ def cmd_train_cyclegan(args) -> Dict:
         merged.update(trainer.train_iteration(i, b))
         return dict(merged)
 
-    def checkpoint(step):
-        paths = []
-        for name, net in trainer.nets.items():  # junyanz's save_networks names
-            paths.append(os.path.join(args.out_dir, f"{step}_net_{name}.pth"))
-            torch.save(net.state_dict(), paths[-1])
-        return paths
+    def checkpoint(step):  # junyanz's save_networks names
+        return Checkpointer(args.out_dir, LAYOUTS["cyclegan"]).save(step, **trainer.nets)
 
     line = _gan_loop(args, device, source, batches, iteration, checkpoint,
                      to_device=cyclegan_batch)

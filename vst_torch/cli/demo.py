@@ -19,7 +19,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-from vst_torch.cli.__main__ import CKPT_NAME, load_state, synthetic_clip
+from vst_torch.cli.__main__ import synthetic_clip
+from vst_torch.core.checkpoint import LAYOUTS, Checkpointer
 from vst_torch.eval.video import _writer
 from vst_torch.train.registry import method_net
 
@@ -38,10 +39,13 @@ class DemoStylizer:
         self.device = torch.device(device)
         torch.manual_seed(seed)
         net = method_net("huang" if method == "ruder" else method, n_styles)
-        path = os.path.join(ckpt_dir, CKPT_NAME) if ckpt_dir and os.path.isdir(ckpt_dir) \
-            else ckpt_dir
+        ckpt = None
+        if ckpt_dir:
+            ckpt = (Checkpointer(ckpt_dir, LAYOUTS["faststyle"]) if os.path.isdir(ckpt_dir)
+                    else Checkpointer.file(ckpt_dir))
+        path = ckpt.path(None, "model") if ckpt else None
         if path and os.path.exists(path):
-            net.load_state_dict(load_state(path))
+            ckpt.restore(None, model=net)
         elif path:
             print(f"no checkpoint at {path}; the net seeded by {seed}", flush=True)
         self.net = net.to(self.device).eval()

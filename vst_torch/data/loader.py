@@ -8,19 +8,96 @@ NCHW. The reference moved tensors to the GPU inside ``__getitem__``
 batch (the FC2 files through the native threaded reader) and the trainer
 copies it once.
 
-``prefetch_to_mesh`` (vst's sharded device_put) belongs to multi-GPU work
-and is not ported.
+``prefetch_to_mesh`` feeds a data-parallel rank: a background thread cuts
+the rank's shard out of each host batch and copies it to the device ahead
+of the step.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Optional
+import queue
+import threading
+from typing import Iterator, Optional
 
 import numpy as np
+import torch
 
 from vst_torch.data.native_loader import load_npy_batch
 from vst_torch.data.synthetic import synthetic_batch
+from vst_torch.parallel.mesh import Mesh, local_rows, tree_map
+
+_END = object()
+
+
+def prefetch_to_mesh(batch_iter: Iterator, mesh: Mesh, depth: int = 2) -> Iterator:
+    """Yield each host batch of ``batch_iter`` (a tree of arrays) as this
+    rank's shard on its device, ``depth`` batches ahead (vst's
+    ``prefetch_to_mesh``, ``vst/data/loader.py:23``).
+
+    A background thread cuts the rank's rows (``P("data")``'s contiguous
+    slice) and, on CUDA, copies them through pinned memory with
+    ``non_blocking`` on a side stream, recording an event; the consumer's
+    stream waits on that event and each tensor is recorded on that stream
+    for the allocator. The side stream lets the copy of batch i + 1 overlap
+    step i, which a copy on the step's own stream would queue behind. An
+    error in the producer is raised in the consumer."""
+    q: queue.Queue = queue.Queue(maxsize=depth)
+    stop = threading.Event()
+    cuda = mesh.device.type == "cuda"
+
+    def put(item) -> bool:
+        while not stop.is_set():
+            try:
+                q.put(item, timeout=0.1)
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    def to_host(x):
+        x = local_rows(x, mesh)
+        return x if torch.is_tensor(x) else torch.from_numpy(np.ascontiguousarray(x))
+
+    def producer():
+        stream = torch.cuda.Stream(mesh.device) if cuda else None
+        try:
+            for batch in batch_iter:
+                host = tree_map(to_host, batch)
+                if stream is None:
+                    item = (tree_map(lambda t: t.to(mesh.device), host), None)
+                else:
+                    with torch.cuda.stream(stream):
+                        dev = tree_map(lambda t: t.pin_memory().to(mesh.device, non_blocking=True),
+                                        host)
+                        event = torch.cuda.Event()
+                        event.record(stream)
+                    item = (dev, event)
+                if not put(item):
+                    return
+        except BaseException as e:  # handed to the consumer, which raises it
+            put(e)
+        finally:
+            put(_END)
+
+    thread = threading.Thread(target=producer, daemon=True)
+    thread.start()
+    try:
+        while True:
+            item = q.get()
+            if item is _END:
+                break
+            if isinstance(item, BaseException):
+                raise item
+            dev, event = item
+            if event is not None:
+                current = torch.cuda.current_stream(mesh.device)
+                current.wait_event(event)
+                tree_map(lambda t: t.record_stream(current), dev)
+            yield dev
+    finally:
+        stop.set()
+        thread.join(timeout=10)
 
 
 class _Dir:

@@ -14,12 +14,15 @@ timer has no sync) and with the host clock on the CPU. With
 ``VST_PROFILE_DIR`` set, the evaluation is traced into that directory
 (``vst_torch.core.trace``), each DT block under ``DT/<video>_s<d>``.
 
-``evaluate_videos_sharded`` (multi-GPU) is not ported yet.
+``evaluate_videos_sharded`` is the multi-GPU harness: each rank scores one
+frame pair of a batch of world-size pairs and the per-frame values are
+all-gathered in order (``vst_torch.parallel``).
 """
 
 from __future__ import annotations
 
 import os
+import time
 from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
@@ -33,6 +36,7 @@ from vst_torch.data.fc2 import _read_image
 from vst_torch.ops.flowtools import fbc_mask
 from vst_torch.ops.image import InputPadder
 from vst_torch.ops.sample import warp
+from vst_torch.parallel.mesh import Mesh, all_gather_rows
 
 
 class SintelVideo:
@@ -276,3 +280,73 @@ def _save_frame(x: np.ndarray, path: str) -> None:
 
     os.makedirs(os.path.dirname(path), exist_ok=True)
     imageio.imwrite(path, (np.clip(x, 0.0, 1.0) * 255).astype(np.uint8))
+
+
+@torch.no_grad()
+def evaluate_videos_sharded(
+    videos: Sequence[SintelVideo],
+    stylize_fn: Callable,
+    raft_apply: Callable,
+    styles: Sequence,
+    mesh: Mesh,
+    lt_len: int = 5,
+    frame_transform: Optional[Callable] = None,
+    raft_preprocess: Optional[Callable] = None,
+) -> Dict[str, Dict[str, float]]:
+    """The Sintel TCL over the mesh's ranks (vst's
+    ``evaluate_videos_sharded``, ``vst/eval/sintel.py:325``), on the rank's
+    device (``mesh.device``: CUDA unless the mesh was made for the CPU).
+
+    Per (video, style), the ST pairs (i − 1, i) and then the LT pairs
+    (i − lt_len, i) go in batches of ``mesh.size`` pairs, one a rank, the
+    tail padded by repeating its last pair and the padding dropped. A rank
+    stylizes its current frame, runs RAFT forward and backward as two
+    calls, builds the fb mask, warps the re-stylized earlier frame with the
+    backward flow and takes the RMS; the per-frame values are all-gathered
+    in rank order. ``DT_<key>`` is the ST pass's wall clock over its pair
+    count, in ms. Every rank returns the same results, aggregated as
+    :func:`evaluate_videos` does over ``len(styles)`` styles.
+    """
+    set_f32_precision()
+    device = mesh.device
+    prep = raft_preprocess or (lambda x: x)
+    n_dev = mesh.size
+    styles = [torch.as_tensor(s, device=device) for s in styles]
+
+    def tcl_one(img, prev, style):
+        x_fake = stylize_fn(img, style)
+        padder = InputPadder(img.shape)
+        i1, i2 = padder.pad(prep(prev), prep(img))
+        ff = padder.unpad(raft_apply(i1, i2)[1])
+        bf = padder.unpad(raft_apply(i2, i1)[1])
+        warped = warp(stylize_fn(prev, style), bf)
+        return torch.sqrt(torch.mean((fbc_mask(ff, bf) * (x_fake - warped)) ** 2, dim=(1, 2, 3)))
+
+    tcl_st: Dict[str, float] = {}
+    tcl_lt: Dict[str, float] = {}
+    dt: Dict[str, float] = {}
+    for video in videos:
+        frames = frames_to_device(video.frames, device, frame_transform)
+        n = len(video)
+        for d, style in enumerate(styles):
+            key = f"{video.name}_s{d + 1}"
+
+            def run_pairs(cur_idx, prev_idx):
+                vals = []
+                t0 = time.perf_counter()
+                for i in range(0, len(cur_idx), n_dev):
+                    ci, pi = cur_idx[i:i + n_dev], prev_idx[i:i + n_dev]
+                    real = len(ci)
+                    ci = ci + [ci[-1]] * (n_dev - real)  # the tail padded to the ranks
+                    pi = pi + [pi[-1]] * (n_dev - real)
+                    c, p = ci[mesh.rank], pi[mesh.rank]
+                    per = tcl_one(frames[c:c + 1], frames[p:p + 1], style)
+                    vals.extend(all_gather_rows(per, mesh)[:real].tolist())
+                return vals, time.perf_counter() - t0
+
+            st_vals, t_st = run_pairs(list(range(1, n)), list(range(0, n - 1)))
+            lt_vals, _ = run_pairs(list(range(lt_len, n)), list(range(0, n - lt_len)))
+            tcl_st[f"TCL-ST_{key}"] = float(np.mean(st_vals)) if st_vals else 0.0
+            tcl_lt[f"TCL-LT_{key}"] = float(np.mean(lt_vals)) if lt_vals else 0.0
+            dt[f"DT_{key}"] = t_st / max(len(st_vals), 1) * 1000.0
+    return aggregate_results({"TCL-ST": tcl_st, "TCL-LT": tcl_lt, "DT": dt}, len(styles))

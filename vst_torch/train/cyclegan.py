@@ -50,6 +50,14 @@ nets and the M step run in float32. The pools' draws come from a seeded
 Batches are dicts of NCHW tensors on the trainer's device: real_A, real_B
 (B, 3, H, W) in [−1, 1]; the temporal variants add real_A2, real_B2, and
 cyclegan_con mask (B, 1, H, W) and flow (B, 2, H, W) (:func:`cyclegan_batch`).
+
+Data parallel (``mesh``): each rank steps on its shard with its share of
+the global loss (every term a batch mean: the local loss over the world
+size), the gradients summed over ranks before Adam and the metrics after.
+vst's pools are global: the fakes are all-gathered, every rank queries the
+same pools with the global batch's draws (so every rank holds the same
+pools) and keeps its rows of the answer. ConGAN's soft mask is a mean over
+the global batch. RAFT runs on the rank's shard.
 """
 
 from __future__ import annotations
@@ -65,6 +73,9 @@ from vst_torch.models.cyclegan import (FusionBlock, define_D, define_G, gan_loss
 from vst_torch.ops.flowtools import fbc_mask
 from vst_torch.ops.image import InputPadder
 from vst_torch.ops.sample import warp
+from vst_torch.parallel.mesh import (Mesh, all_gather_rows, all_reduce_gradients,
+                                     all_reduce_metrics, global_mean, local_rows, replicate,
+                                     share_of_global)
 from vst_torch.train.policy import caller, cast_img, compute_dtype_of, f32
 
 Tensors = Dict[str, torch.Tensor]
@@ -141,17 +152,19 @@ class CycleGANTrainer:
     their draws' generator. Nets are initialised from torch's generator
     seeded with ``seed``, in that order, on the CPU and then moved.
     ``raft(img1, img2) → (flow_low, flow_up)`` is the bound RAFT of MoGAN
-    and ConGAN (or a stand-in with its signature)."""
+    and ConGAN (or a stand-in with its signature). With a ``mesh``, on the
+    mesh's device from rank 0's nets, stepping data-parallel."""
 
     def __init__(self, cfg: CycleGANConfig, raft: Optional[Callable] = None, seed: int = 0,
-                 device="cuda"):
+                 device="cuda", mesh: Optional[Mesh] = None):
         if cfg.variant not in VARIANTS:
             raise ValueError(f"unknown variant {cfg.variant!r}")
         if cfg.variant in ("mogan", "congan") and raft is None:
             raise ValueError(f"{cfg.variant} needs a bound RAFT")
         self.cfg = cfg
         self.cd = compute_dtype_of(cfg.compute_dtype)
-        self.device = torch.device(device)
+        self.mesh = mesh
+        self.device = mesh.device if mesh is not None else torch.device(device)
         self.raft = raft
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(seed)
@@ -161,7 +174,7 @@ class CycleGANTrainer:
                 nets.update(M_A=define_G(cfg.netG, 2, cfg.ngf), M_B=define_G(cfg.netG, 2, cfg.ngf))
             if cfg.variant == "congan":
                 nets.update(F_A=FusionBlock(), F_B=FusionBlock())
-        self.nets = {k: net.to(self.device) for k, net in nets.items()}
+        self.nets = replicate({k: net.to(self.device) for k, net in nets.items()}, mesh)
         # ConGAN's fusion nets step with G off the same backward (ConGAN :313-316)
         groups = {"G": ("G_A", "G_B", "F_A", "F_B"), "D": ("D_A", "D_B"), "M": ("M_A", "M_B")}
         self.groups = {g: tuple(k for k in names if k in self.nets) for g, names in groups.items()}
@@ -236,7 +249,8 @@ class CycleGANTrainer:
             bf_real_A = self.compute_raft(real_A2, real_A)
             warp_B = warp(fake_B, bf_real_A)
             fuse_B = G("F_A", fake_B2, warp_B)
-            mask_A = torch.exp(-50.0 * (real_A2 - warp(real_A, bf_real_A)).abs().mean())
+            mask_A = torch.exp(-50.0 * global_mean((real_A2 - warp(real_A, bf_real_A)).abs(),
+                                                   self.mesh))
             bf_fake_B = self.compute_raft(fuse_B, fake_B)
             rec3D_A2 = G("F_B", G("G_B", fuse_B), warp(fake_B, bf_fake_B))
 
@@ -317,6 +331,7 @@ class CycleGANTrainer:
         opt = self.opts[group]
         opt.zero_grad(set_to_none=True)
         loss.backward()
+        all_reduce_gradients([opt], self.mesh)
         for pg in opt.param_groups:
             pg["lr"] = self.schedule(self.counts[group])
         opt.step()
@@ -340,10 +355,11 @@ class CycleGANTrainer:
         self._frozen_except("G")
         try:
             loss, metrics, fake_A, fake_B = self.g_loss(batch, aux)
+            loss, metrics = share_of_global(loss, metrics, self.mesh)
             self._update("G", loss)
         finally:
             self._unfreeze()
-        return ({k: v.detach() for k, v in metrics.items()},
+        return (all_reduce_metrics({k: v.detach() for k, v in metrics.items()}, self.mesh),
                 (f32(fake_A.detach()), f32(fake_B.detach())))
 
     def draw(self, n: int) -> Draws:
@@ -355,7 +371,10 @@ class CycleGANTrainer:
 
     def query_pools(self, fakes: Sequence[torch.Tensor], draws: Optional[Draws] = None):
         """(fake_A, fake_B) through pools A and B (made at the first query
-        with the fakes' shape and dtype)."""
+        with the fakes' shape and dtype). With a mesh the pools hold the
+        global batch's fakes and ``draws`` are the global batch's; each
+        rank returns its rows."""
+        fakes = [all_gather_rows(f, self.mesh) for f in fakes]
         draws = self.draw(fakes[0].shape[0]) if draws is None else draws
         out = []
         for side, fake, (u, idx) in zip("AB", fakes, draws):
@@ -364,14 +383,14 @@ class CycleGANTrainer:
                                                    fake.device)
             self.pools[side], q = image_pool_query(self.pools[side], fake, u, idx,
                                                    self.cfg.pool_size)
-            out.append(q)
+            out.append(local_rows(q, self.mesh))
         return out
 
     def d_step(self, batch: Tensors, fake_A: torch.Tensor, fake_B: torch.Tensor) -> Tensors:
         """One D update on the pooled fakes; the metrics, detached."""
-        loss, metrics = self.d_loss(batch, fake_A, fake_B)
+        loss, metrics = share_of_global(*self.d_loss(batch, fake_A, fake_B), self.mesh)
         self._update("D", loss)
-        return {k: v.detach() for k, v in metrics.items()}
+        return all_reduce_metrics({k: v.detach() for k, v in metrics.items()}, self.mesh)
 
     def e_step(self, batch: Tensors, draws: Optional[Draws] = None) -> Tensors:
         """vst's ``train_step``: the G step, the pools, the D step. ``draws``:
@@ -389,12 +408,12 @@ class CycleGANTrainer:
             raise ValueError("the M step is MoGAN's")
         self._frozen_except("M")
         try:
-            loss, metrics = self.m_loss(batch)
+            loss, metrics = share_of_global(*self.m_loss(batch), self.mesh)
             self._update("M", loss)
         finally:
             self._unfreeze()
         self.step += 1
-        return {k: v.detach() for k, v in metrics.items()}
+        return all_reduce_metrics({k: v.detach() for k, v in metrics.items()}, self.mesh)
 
     def train_iteration(self, i: int, batch: Tensors) -> Tensors:
         """Iteration ``i`` (0-based) of vst's loop: MoGAN alternates E (even

@@ -26,6 +26,14 @@ the loaders' NHWC numpy). vst draws Ruder's coin from the step's PRNG key
 inside the jitted step; here a seeded ``torch.Generator`` draws it on the
 host and Python branches, and ``loss_fn`` / ``train_step`` take it as an
 argument too.
+
+Data parallel (``mesh``, ``vst_torch.parallel``): each rank holds its shard
+of the global batch; a step builds the rank's share of the global loss (the
+batch means over the world size, Johnson's, Huang's and ReCoNet's TV, a sum
+over the batch, as it is), all-reduces the gradients before Adam and the
+terms after, so that the step at world size N is the step at world size 1
+on the global batch, as vst's sharded step is its single-device step. The
+coin comes from the same seeded generator on every rank.
 """
 
 from __future__ import annotations
@@ -41,12 +49,17 @@ from vst_torch.nn.conv import cudnn_enabled
 from vst_torch.ops.image import resize_bilinear
 from vst_torch.ops.losses import gram_matrix, normalize_imagenet, tv_loss
 from vst_torch.ops.sample import warp_masked
+from vst_torch.parallel.mesh import (Mesh, all_reduce_gradients, all_reduce_metrics, replicate,
+                                     share_of_global)
 from vst_torch.perceptual.vgg import Vgg16Features, he_randomized_, load_features
 
 Tensors = Dict[str, torch.Tensor]
 
 # the number of emphasis parameters of each head
 N_EMPHASIS = {"johnson": 3, "dumoulin": 2, "huang": 4, "reconet": 5, "ruder": 3}
+# each head's terms that are sums over the batch (vst/ops/losses.py:56); the
+# others are batch means
+SUM_TERMS = {"johnson": ("tv",), "huang": ("tv",), "reconet": ("tv",)}
 
 # whether a training step's convolutions run on cuDNN (float32, TF32 off):
 # at 16×3×256×256 on an H100, cuDNN runs VGG16's forward and input gradient
@@ -122,14 +135,18 @@ class FastStyleTrainer:
     drawn from ``seed`` (vst's for the same seed). ``pre_style_state``:
     Ruder's pretrained 3-input bootstrap net, or None for a seeded one (the
     reference requires a trained one). The net is initialised from torch's
-    generator seeded with ``seed``, the bootstrap with ``seed + 1``.
+    generator seeded with ``seed``, the bootstrap with ``seed + 1``. With a
+    ``mesh`` the trainer runs on the mesh's device, starts from rank 0's
+    nets and takes data-parallel steps (``cfg.batch_size`` is the global
+    batch).
     """
 
     def __init__(self, cfg: FastStyleConfig, style_images: np.ndarray,
                  vgg_state: Optional[Tensors] = None, pre_style_state: Optional[Tensors] = None,
-                 seed: int = 0, device="cuda"):
+                 seed: int = 0, device="cuda", mesh: Optional[Mesh] = None):
         self.cfg = cfg
-        self.device = torch.device(device)
+        self.mesh = mesh
+        self.device = mesh.device if mesh is not None else torch.device(device)
         num_inp = 7 if cfg.method == "ruder" else 3
         self.model = _seeded(seed, lambda: FastStyleNet(num_inp, cfg.n_styles)).to(self.device)
         self.pre_model = None
@@ -145,6 +162,7 @@ class FastStyleTrainer:
         else:
             load_features(vgg, vgg_state)
         self.vgg = vgg.requires_grad_(False).to(self.device)
+        replicate([self.model, self.pre_model], mesh)
 
         # Gram targets (fast_style_transfer.py:740-756): normalize → VGG → Gram
         # per tap, one style at a time, stacked per tap: (S, C_i, C_i)
@@ -305,17 +323,20 @@ class FastStyleTrainer:
                    coin: Optional[bool] = None) -> Tensors:
         """One forward and backward pass and one Adam update at the
         schedule's rate for this update; returns the aux terms, detached
-        (no host synchronisation)."""
+        (no host synchronisation). With a mesh, ``batch`` is the rank's
+        shard and the terms are the global batch's."""
         self.opt.zero_grad(set_to_none=True)
         with cudnn_enabled(ON_CUDNN):
             loss, aux = self.loss_fn(batch, style_id, coin)
+            loss, aux = share_of_global(loss, aux, self.mesh, SUM_TERMS.get(self.cfg.method, ()))
             loss.backward()
         self.apply_gradients()
-        return {k: v.detach() for k, v in aux.items()}
+        return all_reduce_metrics({k: v.detach() for k, v in aux.items()}, self.mesh)
 
     def apply_gradients(self) -> None:
-        """One Adam update from the parameters' ``.grad``, at the rate the
-        schedule gives this update."""
+        """One Adam update from the parameters' ``.grad`` (summed over the
+        mesh's ranks first), at the rate the schedule gives this update."""
+        all_reduce_gradients([self.opt], self.mesh)
         for group in self.opt.param_groups:
             group["lr"] = self.schedule(self.step)
         self.opt.step()

@@ -16,16 +16,24 @@ The penalty's α is drawn from a seeded ``torch.Generator`` on the device
 (vst draws it from the step's PRNG key); ``d_step`` takes a given α too.
 Labels are (B, c_dim) float tensors, one-hot or soft; images NCHW in
 [−1, 1].
+
+Data parallel (``mesh``): each rank steps on its shard with its share of
+the global loss (every term a batch mean, so the local loss over the world
+size), the gradients summed over ranks before Adam and the metrics after;
+α is drawn for the global batch on every rank and sliced, as vst's key does
+not depend on the sharding.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict
+from typing import Callable, Dict, Optional
 
 import torch
 
 from vst_torch.models.stargan import Discriminator, Generator
+from vst_torch.parallel.mesh import (Mesh, all_reduce_gradients, all_reduce_metrics, local_rows,
+                                     replicate, share_of_global, world_size)
 
 Tensors = Dict[str, torch.Tensor]
 
@@ -73,16 +81,20 @@ def classification_loss_bce(logits: torch.Tensor, targets: torch.Tensor) -> torc
 class StarGANTrainer:
     """Owns G, D, their Adam optimizers and schedules, and the penalty's α
     generator. G and D are initialised from torch's generator seeded with
-    ``seed`` (G first, then D)."""
+    ``seed`` (G first, then D). With a ``mesh``, on the mesh's device from
+    rank 0's nets, stepping data-parallel."""
 
-    def __init__(self, cfg: StarGANConfig, seed: int = 0, device="cuda"):
+    def __init__(self, cfg: StarGANConfig, seed: int = 0, device="cuda",
+                 mesh: Optional[Mesh] = None):
         self.cfg = cfg
-        self.device = torch.device(device)
+        self.mesh = mesh
+        self.device = mesh.device if mesh is not None else torch.device(device)
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(seed)
             self.G = Generator(cfg.conv_dim, cfg.c_dim, cfg.repeat_num).to(self.device)
             self.D = Discriminator(cfg.image_size, cfg.conv_dim, cfg.c_dim,
                                    cfg.d_repeat_num).to(self.device)
+        replicate([self.G, self.D], mesh)
         self.schedules = {
             "G": stargan_lr_schedule(cfg.g_lr, cfg.num_iters, cfg.num_iters_decay),
             "D": stargan_lr_schedule(cfg.d_lr, cfg.num_iters, cfg.num_iters_decay)}
@@ -111,9 +123,10 @@ class StarGANTrainer:
         with torch.no_grad():
             x_fake = self.G(x_real, c_trg)
         d_loss_fake = self.D(x_fake)[0].mean()
-        if alpha is None:
-            alpha = torch.rand((x_real.shape[0], 1, 1, 1), generator=self.alphas,
-                               device=self.device, dtype=x_real.dtype)
+        if alpha is None:  # the global batch's draws, this rank's rows
+            n = x_real.shape[0] * world_size(self.mesh)
+            alpha = local_rows(torch.rand((n, 1, 1, 1), generator=self.alphas,
+                                          device=self.device, dtype=x_real.dtype), self.mesh)
         d_loss_gp = self.gradient_penalty(alpha * x_real + (1 - alpha) * x_fake)
         loss = (d_loss_real + d_loss_fake + cfg.lambda_cls * d_loss_cls
                 + cfg.lambda_gp * d_loss_gp)
@@ -136,6 +149,7 @@ class StarGANTrainer:
         opt = self.opts[name]
         opt.zero_grad(set_to_none=True)
         loss.backward()
+        all_reduce_gradients([opt], self.mesh)
         for group in opt.param_groups:
             group["lr"] = self.schedules[name](self.counts[name])
         opt.step()
@@ -143,20 +157,20 @@ class StarGANTrainer:
 
     def d_step(self, x_real, c_org, c_trg, alpha=None) -> Tensors:
         """One D update; the metrics, detached."""
-        loss, metrics = self.d_loss(x_real, c_org, c_trg, alpha)
+        loss, metrics = share_of_global(*self.d_loss(x_real, c_org, c_trg, alpha), self.mesh)
         self._update("D", loss)
         self.step += 1
-        return {k: v.detach() for k, v in metrics.items()}
+        return all_reduce_metrics({k: v.detach() for k, v in metrics.items()}, self.mesh)
 
     def g_step(self, x_real, c_org, c_trg) -> Tensors:
         """One G update (D takes no parameter gradient); the metrics, detached."""
         self.D.requires_grad_(False)
         try:
-            loss, metrics = self.g_loss(x_real, c_org, c_trg)
+            loss, metrics = share_of_global(*self.g_loss(x_real, c_org, c_trg), self.mesh)
             self._update("G", loss)
         finally:
             self.D.requires_grad_(True)
-        return {k: v.detach() for k, v in metrics.items()}
+        return all_reduce_metrics({k: v.detach() for k, v in metrics.items()}, self.mesh)
 
     def train_iteration(self, i: int, x_real, c_org, c_trg, alpha=None) -> Tensors:
         """Iteration ``i`` (0-based) of vst's loop (``vst/cli/__main__.py:

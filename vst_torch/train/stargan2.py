@@ -31,6 +31,13 @@ and unused, as in vst.
 Batches are dicts of NCHW tensors on the trainer's device: x_real, x_ref
 (B, 3, H, W) in [−1, 1], y_org, y_trg (B,) long; AdvCon adds x_real2, mask
 (B, 1, H, W) and flow (B, 2, H, W) (:func:`gan_batch`).
+
+Data parallel (``mesh``): each rank steps on its shard with its share of
+the global loss (every term, R1 included, a batch mean: the local loss over
+the world size), the gradients of the updated nets summed over ranks in one
+all-reduce before AdamW and the metrics after; the latents are drawn for the
+global batch on every rank and sliced. The EMA follows the reduced step, so
+it is the same on every rank.
 """
 
 from __future__ import annotations
@@ -44,6 +51,8 @@ import torch
 
 from vst_torch.models.stargan2 import Discriminator, Generator, MappingNetwork, StyleEncoder
 from vst_torch.ops.sample import warp
+from vst_torch.parallel.mesh import (Mesh, all_reduce_gradients, all_reduce_metrics, local_rows,
+                                     replicate, share_of_global, world_size)
 from vst_torch.train.policy import call, cast_img, compute_dtype_of, f32
 
 Tensors = Dict[str, torch.Tensor]
@@ -116,11 +125,15 @@ class StarGAN2Trainer:
     """Owns G, F, E, D, their EMA copies (G, F, E), the four AdamW
     optimizers, λ_ds and the latent generator. The nets are He-initialised
     from torch's generator seeded with ``seed`` (vst draws its own from
-    ``PRNGKey(seed)``; the tests load one side's weights into the other)."""
+    ``PRNGKey(seed)``; the tests load one side's weights into the other).
+    With a ``mesh``, on the mesh's device from rank 0's nets, stepping
+    data-parallel."""
 
-    def __init__(self, cfg: StarGAN2Config, seed: int = 0, device="cuda"):
+    def __init__(self, cfg: StarGAN2Config, seed: int = 0, device="cuda",
+                 mesh: Optional[Mesh] = None):
         self.cfg = cfg
-        self.device = torch.device(device)
+        self.mesh = mesh
+        self.device = mesh.device if mesh is not None else torch.device(device)
         self.dtype = compute_dtype_of(cfg.compute_dtype)
         nets = _seeded(seed, lambda: {
             "generator": Generator(cfg.img_size, cfg.style_dim, cfg.max_conv_dim, cfg.w_hpf),
@@ -128,7 +141,7 @@ class StarGAN2Trainer:
             "style_enc": StyleEncoder(cfg.img_size, cfg.style_dim, cfg.num_domains,
                                       cfg.max_conv_dim),
             "disc": Discriminator(cfg.img_size, cfg.num_domains, cfg.max_conv_dim)})
-        self.nets = {k: v.to(self.device) for k, v in nets.items()}
+        self.nets = replicate({k: v.to(self.device) for k, v in nets.items()}, mesh)
         self.ema = {k: copy.deepcopy(self.nets[k]).requires_grad_(False) for k in EMA_NETS}
         self.opts = {k: torch.optim.AdamW(net.parameters(),
                                           lr=cfg.f_lr if k == "mapping" else cfg.lr,
@@ -201,14 +214,16 @@ class StarGAN2Trainer:
         for k in names:
             self.opts[k].zero_grad(set_to_none=True)
         loss.backward()
+        all_reduce_gradients([self.opts[k] for k in names], self.mesh)
         for k in names:
             self.opts[k].step()
 
     def d_step(self, kind: str, x_real, y_org, y_trg, z=None, x_ref=None) -> Tensors:
         """One D update; the metrics, detached (no host synchronisation)."""
-        loss, metrics = self.d_loss(kind, x_real, y_org, y_trg, z, x_ref)
+        loss, metrics = share_of_global(*self.d_loss(kind, x_real, y_org, y_trg, z, x_ref),
+                                        self.mesh)
         self._update(("disc",), loss)
-        return {k: v.detach() for k, v in metrics.items()}
+        return all_reduce_metrics({k: v.detach() for k, v in metrics.items()}, self.mesh)
 
     def g_step(self, kind: str, update_fe: bool, batch: Tensors) -> Tensors:
         """One G update: G, F and E with ``update_fe`` (the latent step,
@@ -219,12 +234,12 @@ class StarGAN2Trainer:
         for net in frozen:
             net.requires_grad_(False)
         try:
-            loss, metrics = self.g_loss(kind, batch)
+            loss, metrics = share_of_global(*self.g_loss(kind, batch), self.mesh)
             self._update(names, loss)
         finally:
             for net in frozen:
                 net.requires_grad_(True)
-        return {k: v.detach() for k, v in metrics.items()}
+        return all_reduce_metrics({k: v.detach() for k, v in metrics.items()}, self.mesh)
 
     @torch.no_grad()
     def ema_step(self) -> None:
@@ -247,9 +262,11 @@ class StarGAN2Trainer:
     def train_iteration(self, batch: Tensors, z=None, z2=None) -> Tensors:
         """One reference iteration: d(latent), d(ref), g(latent; G, F, E),
         g(ref; G), EMA and decay. ``z`` / ``z2`` drawn when not given.
-        Returns the metrics under vst's names, detached."""
+        Returns the metrics under vst's names, detached. With a mesh, the
+        latents are the global batch's draws, this rank's rows."""
         if z is None:
-            z, z2 = self.draw_latents(batch["x_real"].shape[0])
+            n = batch["x_real"].shape[0] * world_size(self.mesh)
+            z, z2 = (local_rows(t, self.mesh) for t in self.draw_latents(n))
         args = (batch["x_real"], batch["y_org"], batch["y_trg"], z, batch["x_ref"])
         d_lat = self.d_step("latent", *args)
         d_ref = self.d_step("ref", *args)
