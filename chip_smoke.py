@@ -233,7 +233,7 @@ from vst_torch.core.roofline import PEAK_BYTES_PER_S, PEAK_F32_OPS_PER_S
 from vst_torch.cli.webdemo import WebDemo
 from vst_torch.cli.webdemo import make_handler as make_web_handler
 from vst_torch.core.timing import chain_ms, cold_pool, graph_ms, host_ms, windows_ms
-from vst_torch.core.trace import annotate, profile_trace
+from vst_torch.core.trace import profile_trace, span
 from vst_torch.data.device_cache import DeviceFC2Cache
 from vst_torch.data.datagen import generate_fc2_corpus, pack_fc2_npy, precompute_lt_flow
 from vst_torch.data.styles import load_style_images
@@ -2175,7 +2175,7 @@ def fan_run(dev, tmp):
             raise AssertionError("get_heatmap: masks not finite or of shape")
         trace_dir = os.path.join(tmp, "trace")
         with profile_trace(trace_dir):
-            with annotate("demos/fan_forward"):
+            with span("demos/fan_forward"):
                 fan(x1d)
                 torch.cuda.synchronize()
     events = []

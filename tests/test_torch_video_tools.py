@@ -5,7 +5,7 @@ files, HTML, log lines and messages), ``make_videos`` and
 uint8 unit of vst's; measured 0 and 1), the GIF written through PIL where
 imageio is not installed, and the profiler hooks of
 ``vst_torch.core.trace`` (a no-op without a directory; a trace holding the
-``annotate`` names with one; one time a step)."""
+``span`` names with one)."""
 
 import glob
 import json
@@ -217,7 +217,7 @@ def test_profile_trace_without_a_directory_is_a_no_op(tmp_path, monkeypatch):
     monkeypatch.delenv("VST_PROFILE_DIR", raising=False)
     monkeypatch.chdir(tmp_path)
     with trace.profile_trace():
-        with trace.annotate("unit-test-phase"):
+        with trace.span("vst.unit_test_phase"):
             torch.ones(4).sum()
         assert not torch.autograd.profiler._is_profiler_enabled
     assert list(tmp_path.iterdir()) == []
@@ -229,31 +229,22 @@ def test_profile_trace_writes_the_annotations(how, tmp_path, monkeypatch):
     if how == "environment":
         monkeypatch.setenv("VST_PROFILE_DIR", log_dir)
     with trace.profile_trace(log_dir if how == "argument" else None):
-        with trace.annotate("unit-test-phase"):
+        with trace.span("vst.unit_test_phase"):
             torch.ones(16).sum()
     text = _trace_text(log_dir)
     json.loads(text)  # one Chrome trace
-    assert "unit-test-phase" in text
+    assert "vst.unit_test_phase" in text
 
 
 def test_the_sintel_evaluation_is_traced(tmp_path, monkeypatch):
     """``VST_PROFILE_DIR`` traces eval-sintel, each DT block under
-    ``DT/<video>_s<d>`` as vst names it."""
+    ``vst.eval.dt``, one a (video, style)."""
     monkeypatch.setenv("VST_PROFILE_DIR", str(tmp_path / "prof"))
-    cli_main(["eval-sintel", "--device", "cpu", "--hw", "32", "48", "--n-styles", "2",
-              "--raft-iters", "1", "--dt-iters", "1", "--out-dir", str(tmp_path / "out")])
+    out = cli_main(["eval-sintel", "--device", "cpu", "--hw", "32", "48", "--n-styles", "2",
+                    "--raft-iters", "1", "--dt-iters", "1", "--out-dir", str(tmp_path / "out")])
+    keys = [k for k in out["DT"] if not k.startswith("DT_mean")]
+    assert "DT_synthetic_1_s1" in keys and "DT_synthetic_1_s2" in keys
     text = _trace_text(str(tmp_path / "prof"))
-    assert "DT/synthetic_1_s1" in text and "DT/synthetic_1_s2" in text
-
-
-def test_chain_timer_records_one_time_a_step():
-    timer = trace.ChainTimer()
-    x = torch.ones(8)
-    for _ in range(3):
-        with timer:
-            x = x * 2.0
-            timer.sink({"out": [x]})  # the first tensor of a nested output
-    assert len(timer.times_ms) == 3 and timer.mean_ms > 0
-    with timer:
-        timer.sink([])  # nothing to wait for
-    assert len(timer.times_ms) == 4
+    events = json.loads(text)["traceEvents"]
+    assert sum(e.get("name") == "vst.eval.dt" and e.get("cat") == "user_annotation"
+               for e in events) == len(keys)

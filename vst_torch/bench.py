@@ -19,7 +19,7 @@ Peak device memory per config is recorded. Prints one JSON line with
 
 With ``VST_PROFILE_DIR`` set, the run is traced into that directory
 (``vst_torch.core.trace.profile_trace``), each config under
-``bench/<name>``. Left out: ``bench.py``'s ``_dn`` configs, which measure
+``vst.bench.<name>``. Left out: ``bench.py``'s ``_dn`` configs, which measure
 XLA buffer donation (no PyTorch counterpart).
 """
 
@@ -34,7 +34,7 @@ import torch
 
 from vst_torch import set_f32_precision
 from vst_torch.core.timing import windows_ms
-from vst_torch.core.trace import annotate, profile_trace
+from vst_torch.core.trace import profile_trace, span
 from vst_torch.models.faststyle import FastStyleNet
 
 REF_FPS = 1000.0 / 5.87  # the reference's Johnson DT on an RTX 2080, as bench.py
@@ -146,7 +146,7 @@ def run(configs: Sequence = CONFIGS, device="cuda") -> Dict:
     results = {}
     with profile_trace():  # a no-op unless VST_PROFILE_DIR is set
         for name, dtype, batch in configs:
-            with annotate(f"bench/{name}"):
+            with span(f"vst.bench.{name}"):
                 results[name] = measure(dtype, batch, device=device)
             print(name, json.dumps(results[name]), file=sys.stderr, flush=True)
     return report(results, torch.cuda.get_device_name(device))

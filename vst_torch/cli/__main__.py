@@ -195,6 +195,7 @@ from vst_torch import bench, set_f32_precision
 from vst_torch.core.checkpoint import LAYOUTS, Checkpointer
 from vst_torch.core.metrics import MetricsLogger
 from vst_torch.core.timing import windows_ms
+from vst_torch.core.trace import count, span
 from vst_torch.data.device_cache import DeviceFC2Cache, DeviceStyledCache
 from vst_torch.data.fc2 import (CycleGANFC2Dataset, DatasetFC2, FC2Loader, synthetic_fc2_batches,
                                 train_eval_split)
@@ -1010,20 +1011,30 @@ def stylize_frames(stylize: Callable, frames: np.ndarray, batch_size: int, dtype
     ``stylize`` in chunks of ``batch_size`` (the tail chunk padded, so every
     call has one shape), each copied to ``device`` in ``dtype`` and back.
     Returns (the styled frames, float32 (T, H, W, 3); the wall seconds, with
-    a synchronize before the clock is read at each end)."""
+    a synchronize before the clock is read at each end). While a profiler
+    runs it records the spans ``vst.stream.call``, ``vst.stream.upload`` and
+    ``vst.stream.download`` and counts ``vst.stream.frames`` and
+    ``vst.stream.pageable_bytes`` (both copies; ``vst_torch.core.trace``)."""
     T, B = frames.shape[0], batch_size
     outs = []
-    _sync(device)
-    t0 = time.perf_counter()
-    for i in range(0, T, B):
-        chunk = frames[i:i + B]
-        n = chunk.shape[0]
-        if n < B:
-            chunk = np.concatenate([chunk, np.zeros((B - n,) + chunk.shape[1:], chunk.dtype)])
-        x = torch.from_numpy(chunk).to(device).permute(0, 3, 1, 2).to(dtype).contiguous()
-        outs.append(stylize(x)[:n].float().permute(0, 2, 3, 1).cpu().numpy())
-    _sync(device)
-    return np.concatenate(outs), time.perf_counter() - t0
+    with span("vst.stream.call"):
+        _sync(device)
+        t0 = time.perf_counter()
+        for i in range(0, T, B):
+            chunk = frames[i:i + B]
+            n = chunk.shape[0]
+            if n < B:
+                chunk = np.concatenate([chunk, np.zeros((B - n,) + chunk.shape[1:], chunk.dtype)])
+            with span("vst.stream.upload"):
+                x = torch.from_numpy(chunk).to(device).permute(0, 3, 1, 2).to(dtype).contiguous()
+            y = stylize(x)[:n]
+            with span("vst.stream.download"):
+                outs.append(y.float().permute(0, 2, 3, 1).cpu().numpy())
+            count("vst.stream.frames", n)
+            count("vst.stream.pageable_bytes", chunk.nbytes + outs[-1].nbytes)
+        _sync(device)
+        styled = np.concatenate(outs)
+    return styled, time.perf_counter() - t0
 
 
 @torch.no_grad()

@@ -29,6 +29,7 @@ import torch
 from vst_torch import set_f32_precision
 from vst_torch.core.metrics import save_json
 from vst_torch.core.timing import call_ms
+from vst_torch.core.trace import span
 from vst_torch.data.fc2 import to_grayscale3
 from vst_torch.eval.fc2 import batch_to_device, to_nchw
 from vst_torch.eval.sintel import (aggregate_results, evaluate_videos, flows_to_device,
@@ -42,11 +43,13 @@ from vst_torch.perceptual.vgg import obst_postp, obst_prep
 
 def faststyle_stylize_fn(model, state_dict):
     """stylize_fn for evaluate_videos, style = style id. Loads
-    ``state_dict`` into ``model`` (a ``FastStyleNet``), which stands in for
-    vst's (trainer, params); output clamp(model/255, 0, 1)
+    ``state_dict`` into ``model`` (a ``FastStyleNet``; span
+    ``vst.eval.load``), which stands in for vst's (trainer, params); output
+    clamp(model/255, 0, 1)
     (``fast_style_transfer.py:514-515``)."""
-    model.load_state_dict(state_dict)
-    model.eval()
+    with span("vst.eval.load"):
+        model.load_state_dict(state_dict)
+        model.eval()
 
     def fn(img, style_id):
         _, out = model(img, 1.0, style_id)

@@ -12,7 +12,11 @@ Frames are NCHW tensors on the harness's device. DT is timed with CUDA
 events after a ``torch.cuda.synchronize()`` on the card (the reference's
 timer has no sync) and with the host clock on the CPU. With
 ``VST_PROFILE_DIR`` set, the evaluation is traced into that directory
-(``vst_torch.core.trace``), each DT block under ``DT/<video>_s<d>``.
+(``vst_torch.core.trace``). While a profiler runs, the harness records its
+spans (``vst.eval.call``, ``vst.eval.upload``, ``vst.eval.dt``,
+``vst.eval.ops``) and counts its scored frames, ``stylize_fn`` calls and
+host reads (``vst.eval.frames_scored``, ``vst.eval.stylize_calls``,
+``vst.eval.host_reads``).
 
 ``evaluate_videos_sharded`` is the multi-GPU harness: each rank scores one
 frame pair of a batch of world-size pairs and the per-frame values are
@@ -31,7 +35,7 @@ import torch
 from vst_torch import set_f32_precision
 from vst_torch.core.metrics import aggregate_means, save_json
 from vst_torch.core.timing import chain_ms
-from vst_torch.core.trace import annotate, profile_trace
+from vst_torch.core.trace import count, profile_trace, span
 from vst_torch.data.fc2 import _read_image
 from vst_torch.ops.flowtools import fbc_mask
 from vst_torch.ops.image import InputPadder
@@ -76,10 +80,17 @@ def tcl_value(mask, x_fake, warped):
 def frames_to_device(frames: np.ndarray, device, transform: Optional[Callable] = None):
     """(N, H, W, 3) host frames, mapped by ``transform``, → NCHW float32 on
     ``device``."""
-    if transform is not None:
-        frames = transform(frames)
-    return torch.from_numpy(np.ascontiguousarray(frames, np.float32)).permute(
-        0, 3, 1, 2).contiguous().to(device)
+    with span("vst.eval.upload"):
+        if transform is not None:
+            frames = transform(frames)
+        return torch.from_numpy(np.ascontiguousarray(frames, np.float32)).permute(
+            0, 3, 1, 2).contiguous().to(device)
+
+
+def _host_float(x) -> float:
+    """``float(x)``, counted as one of the harness's host reads."""
+    count("vst.eval.host_reads")
+    return float(x)
 
 
 def flows_to_device(flows, device):
@@ -121,6 +132,16 @@ def make_tcl_program(stylize_fn: Callable, raft_apply: Callable,
     """
     prep = raft_preprocess or (lambda x: x)
 
+    def stylized(img, style):
+        count("vst.eval.stylize_calls")
+        return stylize_fn(img, style)
+
+    def pair_tcl(x_fake, earlier_fake, ff, bf):
+        """The fb mask, the backward warp of the earlier stylized frame and
+        the masked RMS of one frame pair."""
+        with span("vst.eval.ops"):
+            return tcl_value(fbc_mask(ff, bf), x_fake, warp(earlier_fake, bf))
+
     def compute_raft_multi(imgs_a, imgs_b):
         """K flow pairs, forward AND backward, in ONE RAFT call at batch 2K;
         rows [0, K) are the forward flows a_i→b_i, rows [K, 2K) backward."""
@@ -139,31 +160,29 @@ def make_tcl_program(stylize_fn: Callable, raft_apply: Callable,
     def tcl(img, img2, style):
         """computeTCL (``sintel_eval.py:104-110``): img = current frame,
         img2 = earlier frame."""
-        x_fake = stylize_fn(img, style)
+        x_fake = stylized(img, style)
         (ff,), (bf,) = compute_raft_multi([img2], [img])
-        warped = warp(stylize_fn(img2, style), bf)
-        return x_fake, tcl_value(fbc_mask(ff, bf), x_fake, warped)
+        return x_fake, pair_tcl(x_fake, stylized(img2, style), ff, bf)
 
     @torch.no_grad()
     def tcl_gt(img, img2, style, ff, bf):
         """The same metric with given flow (a dataset's or a motion oracle's)."""
-        x_fake = stylize_fn(img, style)
-        warped = warp(stylize_fn(img2, style), bf)
-        return x_fake, tcl_value(fbc_mask(ff, bf), x_fake, warped)
+        x_fake = stylized(img, style)
+        return x_fake, pair_tcl(x_fake, stylized(img2, style), ff, bf)
 
     @torch.no_grad()
     def tcl2(img, img_st, img_lt, style):
         """ST and LT TCL of one frame: the current frame is stylized once and
         both flow pairs share one RAFT call at batch 4."""
-        x_fake = stylize_fn(img, style)
+        x_fake = stylized(img, style)
         fwd, bwd = compute_raft_multi([img_st, img_lt], [img, img])
-        vals = [tcl_value(fbc_mask(ff, bf), x_fake, warp(stylize_fn(earlier, style), bf))
+        vals = [pair_tcl(x_fake, stylized(earlier, style), ff, bf)
                 for ff, bf, earlier in zip(fwd, bwd, (img_st, img_lt))]
         return x_fake, vals[0], vals[1]
 
     @torch.no_grad()
     def stylize(img, style):
-        return stylize_fn(img, style)
+        return stylized(img, style)
 
     return tcl, stylize, tcl_gt, tcl2
 
@@ -197,12 +216,12 @@ def evaluate_videos(
     reference's ``<ID>_mean`` / ``<ID>_mean_s{d}`` aggregation; writes the
     JSONs when ``out_path`` is given.
     """
-    set_f32_precision()
-    device = torch.device(device)
-    progs = make_tcl_program(stylize_fn, raft_apply, raft_preprocess=raft_preprocess)
-    styles = [torch.as_tensor(s, device=device) for s in styles]
+    with profile_trace(), span("vst.eval.call"):  # no-ops unless a profiler runs
+        set_f32_precision()
+        device = torch.device(device)
+        progs = make_tcl_program(stylize_fn, raft_apply, raft_preprocess=raft_preprocess)
+        styles = [torch.as_tensor(s, device=device) for s in styles]
 
-    with profile_trace():  # a no-op unless VST_PROFILE_DIR is set
         # warm every (resolution, style) stylize before any DT timing
         if dt_iters > 0:
             seen_hw = set()
@@ -214,7 +233,7 @@ def evaluate_videos(
                 f0 = frames_to_device(video.frames[:1], device, frame_transform)
                 for style in styles:
                     for _ in range(2):
-                        float(progs[1](f0, style).sum())
+                        _host_float(progs[1](f0, style).sum())
 
         tcl_st: Dict[str, float] = {}
         tcl_lt: Dict[str, float] = {}
@@ -227,8 +246,8 @@ def evaluate_videos(
                     video, frames, d, style, progs, lt_len, dt_iters, save_frames,
                     out_path, flow_fn, save_transform)
 
-    nd = (num_domains or len(styles) + 1) - 1
-    return aggregate_results({"TCL-ST": tcl_st, "TCL-LT": tcl_lt, "DT": dt}, nd, out_path)
+        nd = (num_domains or len(styles) + 1) - 1
+        return aggregate_results({"TCL-ST": tcl_st, "TCL-LT": tcl_lt, "DT": dt}, nd, out_path)
 
 
 def _eval_one(video, frames, d, style, progs, lt_len, dt_iters, save_frames,
@@ -241,8 +260,8 @@ def _eval_one(video, frames, d, style, progs, lt_len, dt_iters, save_frames,
 
     # DT: the stylize program alone (the reference times only the generator
     # call, sintel_eval.py:210-214); chained, best of 2 windows
-    with annotate(f"DT/{key}"):
-        float(stylize_prog(frames[0:1], style).sum())
+    with span("vst.eval.dt"):
+        _host_float(stylize_prog(frames[0:1], style).sum())
         dt_ms = min(chain_ms(lambda x: stylize_prog(x, style), frames[0:1], dt_iters)
                     for _ in range(2)) if dt_iters > 0 else 0.0
 
@@ -254,16 +273,18 @@ def _eval_one(video, frames, d, style, progs, lt_len, dt_iters, save_frames,
 
     for i in range(n):
         img = frames[i:i + 1]
+        if i > 0:
+            count("vst.eval.frames_scored")
         if i >= lt_len and flow_fn is None:
             _, st_v, lt_v = tcl2_prog(img, frames[i - 1:i],
                                       frames[i - lt_len:i - lt_len + 1], style)
-            st_vals.append(float(st_v))
-            lt_vals.append(float(lt_v))
+            st_vals.append(_host_float(st_v))
+            lt_vals.append(_host_float(lt_v))
         else:
             if i > 0:
-                st_vals.append(float(tcl_pair(img, i - 1, i)))
+                st_vals.append(_host_float(tcl_pair(img, i - 1, i)))
             if i >= lt_len:
-                lt_vals.append(float(tcl_pair(img, i - lt_len, i)))
+                lt_vals.append(_host_float(tcl_pair(img, i - lt_len, i)))
         if save_frames and out_path:
             x_fake = stylize_prog(img, style)[0].permute(1, 2, 0).cpu().numpy()
             if save_transform is not None:

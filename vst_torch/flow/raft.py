@@ -27,6 +27,11 @@ it would also send ``build_pyramid``'s matmul to bf16. A net in float64
 (``.double()``, float64 images; the parity tests' gradient checks) keeps
 float64 wherever the float32 parts would be; give it ``lookup=
 lookup_pyramid``, since the kernel's wrapper takes float32 only.
+
+While a profiler runs, ``forward`` records the span ``vst.raft.call`` and
+inside it ``vst.raft.encode`` (both encoders), ``vst.raft.corr`` (the
+pyramid) and ``vst.raft.update`` (the loop with its lookups and the
+upsample; ``vst_torch.core.trace``).
 """
 
 from __future__ import annotations
@@ -37,6 +42,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from vst_torch.core.trace import span
 from vst_torch.flow.corr import build_pyramid
 from vst_torch.kernels.corr_lookup import corr_lookup
 from vst_torch.nn.conv import TorchConv, cudnn_enabled
@@ -411,39 +417,41 @@ class RAFT(nn.Module):
             # H//8 coords grid
             raise ValueError(f"RAFT requires H, W divisible by 8 (got {H}x{W}); "
                              "pad with vst_torch.ops.image.InputPadder first")
-        image1 = 2.0 * (image1 / 255.0) - 1.0
-        image2 = 2.0 * (image2 / 255.0) - 1.0
+        with span("vst.raft.call"):
+            image1 = 2.0 * (image1 / 255.0) - 1.0
+            image2 = 2.0 * (image2 / 255.0) - 1.0
 
-        with cudnn_enabled(ON_CUDNN[self.encoder_dtype]):
-            # the correlation volume and the GRU run float32 (vst/flow/raft.py:423-428)
-            fmap1, fmap2 = _acc(self.fnet(torch.cat([image1, image2], 0))).chunk(2, 0)
-            cnet = _acc(self.cnet(image1))
-        pyramid = build_pyramid(fmap1, fmap2, self.corr_levels)
-        net, inp = torch.split(cnet, [self.hidden_dim, self.context_dim], 1)
-        net = torch.tanh(net)
-        inp = F.relu(inp)
+            with span("vst.raft.encode"), cudnn_enabled(ON_CUDNN[self.encoder_dtype]):
+                # the correlation volume and the GRU run float32 (vst/flow/raft.py:423-428)
+                fmap1, fmap2 = _acc(self.fnet(torch.cat([image1, image2], 0))).chunk(2, 0)
+                cnet = _acc(self.cnet(image1))
+            with span("vst.raft.corr"):
+                pyramid = build_pyramid(fmap1, fmap2, self.corr_levels)
+            net, inp = torch.split(cnet, [self.hidden_dim, self.context_dim], 1)
+            net = torch.tanh(net)
+            inp = F.relu(inp)
 
-        coords0 = coords_grid(B, H // 8, W // 8, device=image1.device, dtype=cnet.dtype)
-        coords1 = coords0.clone()
-        if flow_init is not None:
-            coords1 = coords1 + flow_init
+            coords0 = coords_grid(B, H // 8, W // 8, device=image1.device, dtype=cnet.dtype)
+            coords1 = coords0.clone()
+            if flow_init is not None:
+                coords1 = coords1 + flow_init
 
-        with cudnn_enabled(ON_CUDNN[self.update_dtype]):
-            steps = []  # (coords1, net) of each iteration, for train_mode
-            for _ in range(self.iters):
-                # contiguous: the update convs may hand back channel-last deltas
-                coords1 = coords1.detach().contiguous()
-                corr = self.lookup(pyramid, coords1, self.corr_radius)
-                net, delta = self.update_block(net, inp, corr, coords1 - coords0)
-                coords1 = coords1 + delta.to(coords1.dtype)
-                if self.train_mode:
-                    steps.append((coords1, net))
-            if not self.train_mode:
-                steps = [(coords1, net)]
-            ups = [self._upsample(c1 - coords0, h) for c1, h in steps]
+            with span("vst.raft.update"), cudnn_enabled(ON_CUDNN[self.update_dtype]):
+                steps = []  # (coords1, net) of each iteration, for train_mode
+                for _ in range(self.iters):
+                    # contiguous: the update convs may hand back channel-last deltas
+                    coords1 = coords1.detach().contiguous()
+                    corr = self.lookup(pyramid, coords1, self.corr_radius)
+                    net, delta = self.update_block(net, inp, corr, coords1 - coords0)
+                    coords1 = coords1 + delta.to(coords1.dtype)
+                    if self.train_mode:
+                        steps.append((coords1, net))
+                if not self.train_mode:
+                    steps = [(coords1, net)]
+                ups = [self._upsample(c1 - coords0, h) for c1, h in steps]
 
-        flow_low = coords1 - coords0
-        return flow_low, torch.stack(ups) if self.train_mode else ups[0]
+            flow_low = coords1 - coords0
+            return flow_low, torch.stack(ups) if self.train_mode else ups[0]
 
     def _upsample(self, flow: torch.Tensor, net: torch.Tensor) -> torch.Tensor:
         """The 1/8 flow at full size: ``upflow8`` (small) or the convex

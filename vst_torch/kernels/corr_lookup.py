@@ -7,7 +7,9 @@
 CUDA tensors by launching the kernel, which it builds with ``nvcc`` at first
 use into ``vst_torch/_build/`` (listed in ``.gitignore``) and loads with
 ctypes. A build or launch that fails raises. ``corr_lookup.launches``
-counts kernel launches; ``corr_lookup.plain_backwards`` counts the backward
+counts kernel launches (and, while a profiler runs, the counter
+``vst.corr_lookup.launches`` of ``vst_torch.core.trace``);
+``corr_lookup.plain_backwards`` counts the backward
 passes (below), which launch no kernel. The kernel is compiled for the radii of
 ``KERNEL_RADII`` (RAFT small uses 3, RAFT full 4); on CUDA another radius
 raises, on the CPU every radius is computed.
@@ -25,6 +27,7 @@ from typing import Sequence
 
 import torch
 
+from vst_torch.core.trace import count
 from vst_torch.flow.corr import lookup_pyramid
 from vst_torch.kernels import _nvcc
 
@@ -102,6 +105,7 @@ def _launch(pyramid: Sequence[torch.Tensor], coords: torch.Tensor, radius: int) 
     if err != 0:
         raise RuntimeError(f"corr_lookup kernel launch failed: cudaError {err}")
     corr_lookup.launches += 1
+    count("vst.corr_lookup.launches")
     return out.permute(0, 3, 1, 2)
 
 

@@ -49,6 +49,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from vst_torch.core.trace import count, span
 from vst_torch.models.stargan2 import Discriminator, Generator, MappingNetwork, StyleEncoder
 from vst_torch.ops.sample import warp
 from vst_torch.parallel.mesh import (Mesh, all_reduce_gradients, all_reduce_metrics, local_rows,
@@ -211,17 +212,21 @@ class StarGAN2Trainer:
     # -- the steps ----------------------------------------------------------------
 
     def _update(self, names, loss) -> None:
-        for k in names:
-            self.opts[k].zero_grad(set_to_none=True)
-        loss.backward()
-        all_reduce_gradients([self.opts[k] for k in names], self.mesh)
-        for k in names:
-            self.opts[k].step()
+        with span("vst.train.optimizer"):
+            for k in names:
+                self.opts[k].zero_grad(set_to_none=True)
+        with span("vst.train.backward"):
+            loss.backward()
+        with span("vst.train.optimizer"):
+            all_reduce_gradients([self.opts[k] for k in names], self.mesh)
+            for k in names:
+                self.opts[k].step()
 
     def d_step(self, kind: str, x_real, y_org, y_trg, z=None, x_ref=None) -> Tensors:
         """One D update; the metrics, detached (no host synchronisation)."""
-        loss, metrics = share_of_global(*self.d_loss(kind, x_real, y_org, y_trg, z, x_ref),
-                                        self.mesh)
+        with span("vst.train.d_loss"):
+            loss, metrics = share_of_global(*self.d_loss(kind, x_real, y_org, y_trg, z, x_ref),
+                                            self.mesh)
         self._update(("disc",), loss)
         return all_reduce_metrics({k: v.detach() for k, v in metrics.items()}, self.mesh)
 
@@ -234,7 +239,8 @@ class StarGAN2Trainer:
         for net in frozen:
             net.requires_grad_(False)
         try:
-            loss, metrics = share_of_global(*self.g_loss(kind, batch), self.mesh)
+            with span("vst.train.g_loss"):
+                loss, metrics = share_of_global(*self.g_loss(kind, batch), self.mesh)
             self._update(names, loss)
         finally:
             for net in frozen:
@@ -263,17 +269,22 @@ class StarGAN2Trainer:
         """One reference iteration: d(latent), d(ref), g(latent; G, F, E),
         g(ref; G), EMA and decay. ``z`` / ``z2`` drawn when not given.
         Returns the metrics under vst's names, detached. With a mesh, the
-        latents are the global batch's draws, this rank's rows."""
-        if z is None:
-            n = batch["x_real"].shape[0] * world_size(self.mesh)
-            z, z2 = (local_rows(t, self.mesh) for t in self.draw_latents(n))
-        args = (batch["x_real"], batch["y_org"], batch["y_trg"], z, batch["x_ref"])
-        d_lat = self.d_step("latent", *args)
-        d_ref = self.d_step("ref", *args)
-        g_batch = {**batch, "z": z}
-        g_lat = self.g_step("latent", True, g_batch)
-        g_ref = self.g_step("ref", False, g_batch)
-        self.ema_step()
+        latents are the global batch's draws, this rank's rows. While a
+        profiler runs, the iteration records the spans ``vst.train.*`` and
+        counts ``vst.train.iterations`` (``vst_torch.core.trace``)."""
+        with span("vst.train.iteration"):
+            if z is None:
+                n = batch["x_real"].shape[0] * world_size(self.mesh)
+                z, z2 = (local_rows(t, self.mesh) for t in self.draw_latents(n))
+            args = (batch["x_real"], batch["y_org"], batch["y_trg"], z, batch["x_ref"])
+            d_lat = self.d_step("latent", *args)
+            d_ref = self.d_step("ref", *args)
+            g_batch = {**batch, "z": z}
+            g_lat = self.g_step("latent", True, g_batch)
+            g_ref = self.g_step("ref", False, g_batch)
+            with span("vst.train.ema"):
+                self.ema_step()
+            count("vst.train.iterations")
         return {**{f"D/latent_{k}": v for k, v in d_lat.items()},
                 **{f"D/ref_{k}": v for k, v in d_ref.items()},
                 **{f"G/latent_{k}": v for k, v in g_lat.items()},
