@@ -113,8 +113,10 @@ def test_eval_sintel_counts_by_hand(tmp_path, monkeypatch):
     snap = trace.snapshot()
     assert snap["counters"] == {
         "vst.eval.frames_scored": styles * (n - 1),
-        # warm-up 2 a style; a DT call and 2 chains of dt; each pair stylizes both frames
-        "vst.eval.stylize_calls": styles * (2 + 1 + 2 * dt + 2 * pairs),
+        # warm-up 2 a style; a DT call and 2 chains of dt; each frame of the pairs once
+        "vst.eval.stylize_calls": styles * (2 + 1 + 2 * dt + n),
+        # each pair takes both frames; the store gives all but the first take of each
+        "vst.eval.stylize_reuses": styles * (2 * pairs - n),
         # warm-up 2 a style; the DT call's sum; one TCL value a pair
         "vst.eval.host_reads": styles * (2 + 1 + pairs)}
     spans = snap["spans"]
@@ -194,6 +196,7 @@ SYNTHETIC = {
               "vst.train.backward": _span(1300.0), "vst.train.optimizer": _span(300.0),
               "vst.train.ema": _span(20.0)},
     "counters": {"vst.eval.frames_scored": 19, "vst.eval.stylize_calls": 96,
+                 "vst.eval.stylize_reuses": 33,
                  "vst.eval.host_reads": 37, "vst.corr_lookup.launches": 380,
                  "vst.stream.frames": 50, "vst.stream.pageable_bytes": 535756800,
                  "vst.train.iterations": 2}}
@@ -202,6 +205,7 @@ READERS = {
     "raft_encode_ms.eval": 760.0 / 19, "raft_corr_ms.eval": 95.0 / 19,
     "raft_update_ms.eval": 2660.0 / 19, "tcl_ops_ms.eval": 38.0 / 19,
     "upload_ms.eval": 114.0 / 19, "stylize_calls.eval": 96 / 19, "host_reads.eval": 37 / 19,
+    "stylize_reuses.eval": 33 / 19,
     "corr_lookup_launches.eval": 20.0, "upload_ms.stream": 40.0 / 50,
     "download_ms.stream": 125.0 / 50, "pageable_bytes.stream": 10.715136,
     "fwd_ms.train": 900.0, "bwd_ms.train": 650.0, "optim_ms.train": 160.0}

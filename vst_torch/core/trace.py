@@ -25,6 +25,7 @@ spans and counters of the port:
 ``vst.eval.ops``               one pair's fb mask, warp and masked RMS
 ``vst.eval.frames_scored``     counter: frames with a TCL value
 ``vst.eval.stylize_calls``     counter: calls of the harness's ``stylize_fn``
+``vst.eval.stylize_reuses``    counter: stylized frames a pass took from its store
 ``vst.eval.host_reads``        counter: values the harness reads to the host
 ``vst.eval.load``              FastStyleNet's weights loaded for an evaluation
 ``vst.raft.call``              ``RAFT.forward``

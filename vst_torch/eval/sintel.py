@@ -3,10 +3,13 @@
 
 Per video × style: stylize every frame (timed → DT), estimate RAFT flow
 between the current and the previous (ST) / 5-back (LT) frame, build the
-fb-consistency mask, backward-warp the re-stylized earlier frame and take
-the RMS masked difference. Quirks kept (PARITY.md): frames cropped to 432
-rows; ``computeTCL`` re-stylizes the earlier frame; the caller's pipeline
-range goes to RAFT unchanged unless ``raft_preprocess`` says otherwise.
+fb-consistency mask, backward-warp the stylized earlier frame and take the
+RMS masked difference. Quirks kept (PARITY.md): frames cropped to 432 rows;
+the earlier frame is G(earlier frame, style) of the same pass, as
+``computeTCL`` computes it (the reference re-stylizes it; a pass here
+stylizes each frame once and reuses the output, the same bits because
+``stylize_fn`` is pure); the caller's pipeline range goes to RAFT unchanged
+unless ``raft_preprocess`` says otherwise.
 
 Frames are NCHW tensors on the harness's device. DT is timed with CUDA
 events after a ``torch.cuda.synchronize()`` on the card (the reference's
@@ -14,9 +17,10 @@ timer has no sync) and with the host clock on the CPU. With
 ``VST_PROFILE_DIR`` set, the evaluation is traced into that directory
 (``vst_torch.core.trace``). While a profiler runs, the harness records its
 spans (``vst.eval.call``, ``vst.eval.upload``, ``vst.eval.dt``,
-``vst.eval.ops``) and counts its scored frames, ``stylize_fn`` calls and
-host reads (``vst.eval.frames_scored``, ``vst.eval.stylize_calls``,
-``vst.eval.host_reads``).
+``vst.eval.ops``) and counts its scored frames, ``stylize_fn`` calls, the
+stylized frames a pair took from the pass's store and host reads
+(``vst.eval.frames_scored``, ``vst.eval.stylize_calls``,
+``vst.eval.stylize_reuses``, ``vst.eval.host_reads``).
 
 ``evaluate_videos_sharded`` is the multi-GPU harness: each rank scores one
 frame pair of a batch of world-size pairs and the per-frame values are
@@ -128,11 +132,17 @@ def make_tcl_program(stylize_fn: Callable, raft_apply: Callable,
 
     Returns ``tcl(img, img_earlier, style) → (x_fake, tcl)``,
     ``stylize(img, style)``, ``tcl_gt(img, img_earlier, style, ff, bf)`` and
-    ``tcl2(img, img_st, img_lt, style) → (x_fake, tcl_st, tcl_lt)``.
+    ``tcl2(img, img_st, img_lt, style) → (x_fake, tcl_st, tcl_lt)``. Called
+    positionally they stylize every frame they take; the keyword-only
+    ``x_fake`` (the current frame's output), ``earlier_fake`` (``tcl``,
+    ``tcl_gt``) and ``st_fake`` / ``lt_fake`` (``tcl2``) give frames that are
+    already stylized, and the program stylizes only those not given.
     """
     prep = raft_preprocess or (lambda x: x)
 
-    def stylized(img, style):
+    def stylized(img, style, given=None):
+        if given is not None:
+            return given
         count("vst.eval.stylize_calls")
         return stylize_fn(img, style)
 
@@ -157,27 +167,27 @@ def make_tcl_program(stylize_fn: Callable, raft_apply: Callable,
         return fwd, bwd
 
     @torch.no_grad()
-    def tcl(img, img2, style):
+    def tcl(img, img2, style, *, x_fake=None, earlier_fake=None):
         """computeTCL (``sintel_eval.py:104-110``): img = current frame,
         img2 = earlier frame."""
-        x_fake = stylized(img, style)
+        x_fake = stylized(img, style, x_fake)
         (ff,), (bf,) = compute_raft_multi([img2], [img])
-        return x_fake, pair_tcl(x_fake, stylized(img2, style), ff, bf)
+        return x_fake, pair_tcl(x_fake, stylized(img2, style, earlier_fake), ff, bf)
 
     @torch.no_grad()
-    def tcl_gt(img, img2, style, ff, bf):
+    def tcl_gt(img, img2, style, ff, bf, *, x_fake=None, earlier_fake=None):
         """The same metric with given flow (a dataset's or a motion oracle's)."""
-        x_fake = stylized(img, style)
-        return x_fake, pair_tcl(x_fake, stylized(img2, style), ff, bf)
+        x_fake = stylized(img, style, x_fake)
+        return x_fake, pair_tcl(x_fake, stylized(img2, style, earlier_fake), ff, bf)
 
     @torch.no_grad()
-    def tcl2(img, img_st, img_lt, style):
+    def tcl2(img, img_st, img_lt, style, *, x_fake=None, st_fake=None, lt_fake=None):
         """ST and LT TCL of one frame: the current frame is stylized once and
         both flow pairs share one RAFT call at batch 4."""
-        x_fake = stylized(img, style)
+        x_fake = stylized(img, style, x_fake)
         fwd, bwd = compute_raft_multi([img_st, img_lt], [img, img])
-        vals = [pair_tcl(x_fake, stylized(earlier, style), ff, bf)
-                for ff, bf, earlier in zip(fwd, bwd, (img_st, img_lt))]
+        vals = [pair_tcl(x_fake, stylized(earlier, style, given), ff, bf)
+                for ff, bf, earlier, given in zip(fwd, bwd, (img_st, img_lt), (st_fake, lt_fake))]
         return x_fake, vals[0], vals[1]
 
     @torch.no_grad()
@@ -212,6 +222,9 @@ def evaluate_videos(
     ``frame_transform`` maps [0,1] frames into the pipeline range;
     ``save_transform(style_index, frame)`` post-processes saved PNGs only;
     ``flow_fn(video, i, j)`` → (ff, bf) numpy (H, W, 2) replaces RAFT.
+    ``stylize_fn`` must be pure in ``(img, style)`` for the length of a
+    (video, style) pass: the pass stylizes each frame once and its pairs
+    reuse the output.
     Returns {"TCL-ST": {...}, "TCL-LT": {...}, "DT": {...}} with the
     reference's ``<ID>_mean`` / ``<ID>_mean_s{d}`` aggregation; writes the
     JSONs when ``out_path`` is given.
@@ -252,11 +265,17 @@ def evaluate_videos(
 
 def _eval_one(video, frames, d, style, progs, lt_len, dt_iters, save_frames,
               out_path, flow_fn, save_transform):
-    """One (video, style) pass: DT chained timing, then per-frame ST/LT TCL."""
+    """One (video, style) pass: DT chained timing, then per-frame ST/LT TCL.
+
+    The pairs stylize each frame once, when it is first needed, and keep the
+    output by frame index until no later pair reads it (index i − lt_len
+    goes once frame i is scored), so the store holds at most lt_len + 1
+    frames."""
     tcl_prog, stylize_prog, tcl_gt_prog, tcl2_prog = progs
     key = f"{video.name}_s{d + 1}"
     n = len(video)
     st_vals, lt_vals = [], []
+    store: Dict[int, torch.Tensor] = {}
 
     # DT: the stylize program alone (the reference times only the generator
     # call, sintel_eval.py:210-214); chained, best of 2 windows
@@ -265,11 +284,20 @@ def _eval_one(video, frames, d, style, progs, lt_len, dt_iters, save_frames,
         dt_ms = min(chain_ms(lambda x: stylize_prog(x, style), frames[0:1], dt_iters)
                     for _ in range(2)) if dt_iters > 0 else 0.0
 
+    def fake(j):
+        """Frame j stylized: the store's output, else stylized now and kept."""
+        if j in store:
+            count("vst.eval.stylize_reuses")
+        else:
+            store[j] = stylize_prog(frames[j:j + 1], style)
+        return store[j]
+
     def tcl_pair(img, j, i):
+        kept = dict(x_fake=fake(i), earlier_fake=fake(j))
         if flow_fn is None:
-            return tcl_prog(img, frames[j:j + 1], style)[1]
+            return tcl_prog(img, frames[j:j + 1], style, **kept)[1]
         ff, bf = flows_to_device(flow_fn(video, i, j), frames.device)
-        return tcl_gt_prog(img, frames[j:j + 1], style, ff, bf)[1]
+        return tcl_gt_prog(img, frames[j:j + 1], style, ff, bf, **kept)[1]
 
     for i in range(n):
         img = frames[i:i + 1]
@@ -277,7 +305,9 @@ def _eval_one(video, frames, d, style, progs, lt_len, dt_iters, save_frames,
             count("vst.eval.frames_scored")
         if i >= lt_len and flow_fn is None:
             _, st_v, lt_v = tcl2_prog(img, frames[i - 1:i],
-                                      frames[i - lt_len:i - lt_len + 1], style)
+                                      frames[i - lt_len:i - lt_len + 1], style,
+                                      x_fake=fake(i), st_fake=fake(i - 1),
+                                      lt_fake=fake(i - lt_len))
             st_vals.append(_host_float(st_v))
             lt_vals.append(_host_float(lt_v))
         else:
@@ -286,10 +316,11 @@ def _eval_one(video, frames, d, style, progs, lt_len, dt_iters, save_frames,
             if i >= lt_len:
                 lt_vals.append(_host_float(tcl_pair(img, i - lt_len, i)))
         if save_frames and out_path:
-            x_fake = stylize_prog(img, style)[0].permute(1, 2, 0).cpu().numpy()
+            x_fake = fake(i)[0].permute(1, 2, 0).cpu().numpy()
             if save_transform is not None:
                 x_fake = save_transform(d, x_fake)
             _save_frame(x_fake, os.path.join(out_path, key, f"frame_{i:04d}.png"))
+        store.pop(i - lt_len, None)
 
     st = float(np.mean(st_vals)) if st_vals else 0.0
     lt = float(np.mean(lt_vals)) if lt_vals else 0.0
