@@ -149,8 +149,9 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
    small, at 2×3×64×64 with 3 iterations on the card against the CPU (loss
    in f32 through the kernel ≤ 1e-4 relative; every gradient in f64, the
    plain lookup on both sides, ≤ 1e-8 relative in L2 per parameter); RAFT's
-   chairs stage (batch 10, crop 368×496, 12 iterations, γ = 0.8, AdamW lr
-   4e-4, weight decay 1e-4, gradient clip 1.0) on batches of FlyingChairs
+   chairs stage through `RAFTTrainer` (batch 10, crop 368×496, 12
+   iterations, γ = 0.8, AdamW lr 4e-4, weight decay 1e-4, gradient clip 1.0,
+   OneCycle, batch norm on batch statistics) on batches of FlyingChairs
    with its stage's augmentor over a 384×512 `data/*.ppm` + `*.flo` tree of
    affine-motion pairs: 9 steps (the median of the last 6 by CUDA events,
    images/s, peak memory, every loss finite, exactly 12 launches and 12
@@ -248,7 +249,7 @@ from vst_torch.parallel.mesh import all_reduce_gradients, create_mesh, initializ
 from vst_torch.data.synthetic import _scene as scene
 from vst_torch.eval.video import latent_interpolation_video, make_videos, write_png
 from vst_torch.flow.corr import build_pyramid, lookup_pyramid
-from vst_torch.flow.datasets import fetch_flow_datasets, flow_sequence_loss
+from vst_torch.flow.datasets import fetch_flow_datasets
 from vst_torch.flow.raft import RAFT, coords_grid
 from vst_torch.kernels import _nvcc
 from vst_torch.kernels import corr_lookup as corr_lookup_module
@@ -277,6 +278,7 @@ from vst_torch.train.cyclegan import CycleGANConfig, CycleGANTrainer, cyclegan_b
 from vst_torch.train.parity import (cyclegan_steps, grad_errors, max_loss_rel_err, param_errors,
                                     raft_sequence_step, raft_train_inputs, stargan2_steps,
                                     stargan_steps, training_step)
+from vst_torch.train.raft import RAFTTrainConfig, RAFTTrainer
 from vst_torch.train.stargan2 import StarGAN2Config, StarGAN2Trainer
 from vst_torch.train.registry import FASTSTYLE_METHODS, method_net, select_method
 
@@ -2001,18 +2003,12 @@ def phase_raft_train(dev):
     record["seconds"]["data"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    raft = seeded_raft(RT_ITERS, dev, train_mode=True)
-    opt = torch.optim.AdamW(raft.parameters(), lr=RT_LR, weight_decay=RT_WDECAY, eps=1e-8)
+    trainer = RAFTTrainer(RAFTTrainConfig(iters=RT_ITERS, lr=RT_LR, wdecay=RT_WDECAY,
+                                          gamma=RT_GAMMA, clip=RT_CLIP), device=dev)
 
     def step(batch):
-        img1, img2, flow, valid = batch
-        opt.zero_grad(set_to_none=True)
-        _, preds = raft(img1, img2)
-        loss = flow_sequence_loss(preds, flow, valid, gamma=RT_GAMMA)
-        loss.backward()
-        torch.nn.utils.clip_grad_norm_(raft.parameters(), RT_CLIP)
-        opt.step()
-        return loss.detach()
+        return trainer.train_iteration(dict(zip(("image1", "image2", "flow", "valid"),
+                                                batch)))["loss"]
 
     reset_counts()
     torch.cuda.reset_peak_memory_stats()

@@ -8,6 +8,10 @@ family's training and evaluation, and the benchmarks.
                                            [--lambda-tcl 100] [--compute-dtype bfloat16]
                                            [--data-dir ROOT [--device-cache N]]
     python -m vst_torch.cli train-stargan [--hw 128 128] [--batch-size 16] [--n-critic 5]
+    python -m vst_torch.cli train-raft --data-dir CHAIRS [--image-size 368 496] [--batch-size 10]
+                                       [--steps N] [--num-steps 100000] [--lr 0.0004]
+                                       [--wdecay 0.0001] [--iters 12] [--gamma 0.8]
+                                       [--clip 1.0] [--resume]
     python -m vst_torch.cli train-cyclegan [--variant cyclegan|cyclegan_con|mogan|congan]
                                            [--hw 256 256] [--batch-size 4] [--sid 1]
                                            [--compute-dtype bfloat16]
@@ -90,6 +94,18 @@ state_dict a net) every ``--ckpt-every`` iterations and at the end, and
 ends with one JSON line: the E step's (and MoGAN's M step's) median time
 by CUDA events after 3 warm-up iterations (the host clock on the CPU),
 images/s, peak memory, the first and last losses.
+
+``train-raft``: RAFT at its FlyingChairs stage (``vst_torch.train.raft``,
+upstream's ``train.py --stage chairs``): a FlyingChairs tree (``--data-dir``
+holding ``data/*.ppm`` and ``*.flo``) through the stage's augmentor at
+``--image-size``, batches of ``--batch-size`` drawn without replacement, the
+order reshuffled every epoch; RAFT's context encoder on batch statistics,
+the sequence loss, AdamW, the clip and the OneCycle schedule over
+``--num-steps``. ``--steps`` is this run's share; ``--resume`` first loads the
+newest ``<out-dir>/{step}_raft.pth`` and ``{step}_train_state.pth``, which it
+writes every ``--ckpt-every`` steps and at the end. Prints the loss, EPE and
+1/3/5 px shares every ``--log-every`` steps and ends with one JSON line as
+the GAN trainers do.
 
 ``eval-sintel``: TCL-ST / TCL-LT / DT of the FastStyleNet family on Sintel
 (``--sintel-dir``) or, without it, on an 8-frame synthetic affine-motion
@@ -210,6 +226,7 @@ from vst_torch.eval.drivers import (evaluate_fc2_obst, evaluate_fc2_ruder,
 from vst_torch.eval.fc2 import calculate_metrics
 from vst_torch.eval.sintel import SintelVideo, load_sintel_videos
 from vst_torch.eval.video import _writer, translate_and_reconstruct, write_png
+from vst_torch.flow.datasets import fetch_flow_datasets
 from vst_torch.flow.raft import RAFT
 from vst_torch.metrics.fid import InceptionV3
 from vst_torch.models.cyclegan import ResnetGenerator
@@ -221,6 +238,7 @@ from vst_torch.train.cyclegan import (VARIANTS, CycleGANConfig, CycleGANTrainer,
 from vst_torch.train.faststyle import FastStyleTrainer, batch_to_tensors
 from vst_torch.train.registry import FASTSTYLE_METHODS, bootstrap_net, method_net, select_method
 from vst_torch.train.stargan import StarGANConfig, StarGANTrainer
+from vst_torch.train.raft import RAFTTrainConfig, RAFTTrainer
 from vst_torch.train.stargan2 import (StarGAN2Config, StarGAN2Trainer, gan_batch,
                                       nets_from_state_dicts)
 
@@ -786,7 +804,7 @@ def _gan_batches(args, device: torch.device, multidomain: bool):
 def _gan_loop(args, device: torch.device, source: str, batches, iteration: Callable,
               checkpoint: Callable, every: Callable = lambda i, batch: None,
               to_device: Callable = gan_batch) -> Dict:
-    """The GAN trainers' loop: ``iteration(i, batch)`` → metrics per
+    """The GAN trainers' loop, and ``train-raft``'s: ``iteration(i, batch)`` → metrics per
     iteration under ``_StepTimer``, vst's log line and ``losses.txt``,
     ``checkpoint(step)`` every ``--ckpt-every`` and at the end, ``every(i,
     batch)`` after each iteration; ``to_device(batch, device)`` makes the
@@ -880,6 +898,58 @@ def cmd_train_stargan(args) -> Dict:
     line = _gan_loop(args, device, source, batches, iteration, checkpoint)
     return _report({"family": "stargan", "n_critic": cfg.n_critic,
                     "g_steps": trainer.counts["G"], **line})
+
+
+def _chairs_batches(args, seed: int):
+    """Endless FlyingChairs batches of ``--batch-size`` samples (host numpy,
+    NHWC) through the chairs stage's augmentor at ``--image-size``: each
+    epoch a new order from the seed, the last partial batch dropped, as
+    upstream's ``DataLoader(shuffle=True, drop_last=True)``. ``seed`` is
+    ``--seed`` plus a resumed run's start step, so that the run does not
+    repeat the first run's batches."""
+    if not args.data_dir:
+        raise SystemExit("train-raft: --data-dir names a FlyingChairs tree (data/*.ppm, *.flo)")
+    data = fetch_flow_datasets("chairs", {"chairs": args.data_dir}, crop_size=tuple(args.hw),
+                               seed=seed)
+    if len(data) < args.batch_size:
+        raise SystemExit(f"train-raft: {len(data)} pairs in {args.data_dir}, fewer than a batch")
+    rng = np.random.RandomState(seed)
+    while True:
+        order = rng.permutation(len(data))
+        for k in range(0, len(order) - args.batch_size + 1, args.batch_size):
+            samples = [data[i] for i in order[k:k + args.batch_size]]
+            yield dict(zip(("image1", "image2", "flow", "valid"),
+                           (np.stack(x) for x in zip(*samples))))
+
+
+def flow_batch(batch, device: torch.device) -> Dict[str, torch.Tensor]:
+    """A host batch of flow samples (NHWC numpy) → ``RAFTTrainer``'s dict
+    on ``device``: NCHW float32 images and flow, valid (B, H, W)."""
+    return {k: torch.from_numpy(np.ascontiguousarray(
+        v.transpose(0, 3, 1, 2) if v.ndim == 4 else v)).to(device, torch.float32)
+        for k, v in batch.items()}
+
+
+def cmd_train_raft(args) -> Dict:
+    device = _device(args)
+    set_f32_precision()
+    cfg = RAFTTrainConfig(iters=args.iters, lr=args.lr, wdecay=args.wdecay, gamma=args.gamma,
+                          clip=args.clip, num_steps=args.num_steps)
+    trainer = RAFTTrainer(cfg, seed=args.seed, device=device)
+    ckpt = Checkpointer(args.out_dir, LAYOUTS["raft"])
+    start = (ckpt.latest_step() if args.resume else None) or 0
+    if start:
+        trainer.load_state_dict(ckpt.restore(start, raft=trainer.raft,
+                                             train_state=None)["train_state"])
+    batches = _chairs_batches(args, args.seed + start)
+
+    def checkpoint(step):
+        return ckpt.save(start + step, raft=trainer.raft, train_state=trainer.state_dict())
+
+    line = _gan_loop(args, device, "chairs", batches, lambda i, b: trainer.train_iteration(b),
+                     checkpoint, to_device=flow_batch)
+    return _report({"family": "raft", "stage": "chairs", "start_step": start,
+                    "step": trainer.step, "lr": trainer.sched.get_last_lr()[0], **line})
 
 
 def _cyclegan_batches(args, device: torch.device):
@@ -1280,6 +1350,24 @@ def parser() -> argparse.ArgumentParser:
                    help="vst's bf16 policy for G and D (vst_torch.train.policy); RAFT and the "
                         "M nets stay float32")
     s.set_defaults(fn=cmd_train_cyclegan)
+
+    s = sub.add_parser("train-raft", help="RAFT training at its FlyingChairs stage")
+    _add_common(s, hw=(368, 496), batch_size=10, reads=_TRAIN_FLAGS[:-1], helps={
+        "--ckpt-every": "write <out-dir>/{step}_raft.pth and {step}_train_state.pth every N "
+                        "steps and at the end",
+        "--data-dir": "a FlyingChairs tree (data/*_img1.ppm, *_img2.ppm, *_flow.flo)"})
+    s.add_argument("--image-size", type=int, nargs=2, dest="hw",
+                   help="upstream's name of --hw: the augmentor's crop")
+    s.add_argument("--num-steps", type=int, default=100_000,
+                   help="the OneCycle schedule's length (upstream's --num_steps)")
+    s.add_argument("--lr", type=float, default=4e-4)
+    s.add_argument("--wdecay", type=float, default=1e-4)
+    s.add_argument("--iters", type=int, default=12, help="RAFT's GRU iterations")
+    s.add_argument("--gamma", type=float, default=0.8, help="the sequence loss's decay")
+    s.add_argument("--clip", type=float, default=1.0, help="the gradient norm's clip")
+    s.add_argument("--resume", action="store_true",
+                   help="continue from the newest checkpoint in --out-dir")
+    s.set_defaults(fn=cmd_train_raft)
 
     s = sub.add_parser("eval-sintel", help="TCL-ST / TCL-LT / DT video benchmark")
     _add_common(s)

@@ -11,6 +11,9 @@ files its commands have always written, one file a tree, named by a layout
 * ``{step}-{name}.ckpt``: StarGAN v1 (``G``, ``D``);
 * ``{step}_net_{name}.pth``: the CycleGAN family (junyanz's
   ``save_networks``: ``G_A``, ``G_B``, ``D_A``, ...).
+* ``{step}_{name}.pth``: ``train-raft`` (upstream RAFT's ``train.py`` names:
+  ``raft``, the net's ``state_dict``; ``train_state``, the optimizer's and
+  the schedule's).
 
 A file of any other name is a layout of its own (:meth:`Checkpointer.file`),
 so one reader serves converted reference checkpoints too. Trees are torch
@@ -27,7 +30,8 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 
 LAYOUTS = {"faststyle": "{name}.pt", "stargan2": "{step:06d}_{name}.ckpt",
-           "stargan": "{step}-{name}.ckpt", "cyclegan": "{step}_net_{name}.pth"}
+           "stargan": "{step}-{name}.ckpt", "cyclegan": "{step}_net_{name}.pth",
+           "raft": "{step}_{name}.pth"}
 
 
 def clean_state_dict(sd: Dict[str, Any]) -> Dict[str, Any]:

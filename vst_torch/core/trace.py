@@ -33,16 +33,19 @@ spans and counters of the port:
 ``vst.raft.corr``              the correlation pyramid
 ``vst.raft.update``            the update loop with its lookups and the upsample
 ``vst.corr_lookup.launches``   counter: launches of the lookup kernel
+``vst.corr_lookup.backward``   the lookup's backward (the plain version's autograd)
+``vst.corr_lookup.backwards``  counter: the lookup's backward passes
 ``vst.stream.call``            ``stylize_frames`` (root)
 ``vst.stream.upload``          a chunk from numpy to the device in its dtype
 ``vst.stream.download``        a styled chunk back to numpy
 ``vst.stream.frames``          counter: frames styled
 ``vst.stream.pageable_bytes``  counter: bytes of both pageable copies
-``vst.train.iteration``        ``StarGAN2Trainer.train_iteration`` (root)
+``vst.train.iteration``        ``train_iteration`` of ``StarGAN2Trainer``, ``RAFTTrainer`` (root)
 ``vst.train.d_loss``           a D step's forward, R1's double backward included
 ``vst.train.g_loss``           a G step's forward
+``vst.train.loss``             RAFT's training forward and its sequence loss
 ``vst.train.backward``         ``loss.backward()`` of a step
-``vst.train.optimizer``        zero_grad, the gradient all-reduce, AdamW's steps
+``vst.train.optimizer``        zero_grad, the gradient all-reduce or clip, AdamW, the schedule
 ``vst.train.ema``              the EMA update
 ``vst.train.iterations``       counter: iterations
 ``vst.bench.<name>``           one config of ``vst_torch.bench``

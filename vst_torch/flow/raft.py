@@ -1,9 +1,10 @@
 """RAFT optical flow (full and small variants), NCHW, port of
 ``vst/flow/raft.py`` (``utils/raft/raft/``).
 
-Full: feature encoder (instance norm) + context encoder (batch norm, eval
-statistics) → 4-level all-pairs correlation pyramid → a Python loop of GRU
-iterations: windowed corr lookup (the Hopper kernel's wrapper, radius 4) →
+Full: feature encoder (instance norm) + context encoder (batch norm, stored
+statistics; the batch's once :meth:`RAFT.unfreeze_bn` and in training mode)
+→ 4-level all-pairs correlation pyramid → a Python loop of GRU iterations:
+windowed corr lookup (the Hopper kernel's wrapper, radius 4) →
 motion encoder → SepConvGRU → flow head; after the loop, the upsample-mask
 head and the convex 8× upsample of the 1/8-resolution flow. Small
 (``small=True``): bottleneck encoders (instance norm / none), radius 3, the
@@ -57,8 +58,16 @@ def _acc(x: torch.Tensor) -> torch.Tensor:
 
 class _Norm(nn.Module):
     """RAFT's norms (``extractor.py:16-38``): 'instance' (InstanceNorm2d
-    without affine, so no keys), 'batch' (eval mode on stored statistics),
-    'group' (affine) or 'none'."""
+    without affine, so no keys), 'batch', 'group' (affine) or 'none'.
+
+    'batch' normalises with the stored statistics unless it is unfrozen
+    (``frozen = False``, :meth:`RAFT.unfreeze_bn`) and in training mode:
+    then, as ``nn.BatchNorm2d`` in training, with the batch's per-channel
+    mean and biased variance over (B, H, W), updating the stored ones by
+    momentum 0.1 with the unbiased variance. The statistics are taken in the
+    accumulation dtype (float32, float64 for a float64 input)."""
+
+    MOMENTUM = 0.1
 
     def __init__(self, norm_fn: str, channels: int, num_groups: int = 8):
         super().__init__()
@@ -66,6 +75,7 @@ class _Norm(nn.Module):
             raise ValueError(norm_fn)
         self.norm_fn = norm_fn
         self.num_groups = num_groups
+        self.frozen = True
         if norm_fn in ("batch", "group"):
             self.weight = nn.Parameter(torch.ones(channels))
             self.bias = nn.Parameter(torch.zeros(channels))
@@ -78,6 +88,9 @@ class _Norm(nn.Module):
             return x
         if self.norm_fn == "instance":
             return instance_norm(x)
+        if self.norm_fn == "batch" and self.training and not self.frozen:
+            return F.batch_norm(_acc(x), self.running_mean, self.running_var, self.weight,
+                                self.bias, training=True, momentum=self.MOMENTUM, eps=1e-5)
         if self.norm_fn == "batch":
             x = (x - self.running_mean[:, None, None]) / torch.sqrt(
                 self.running_var[:, None, None] + 1e-5)
@@ -452,6 +465,16 @@ class RAFT(nn.Module):
 
             flow_low = coords1 - coords0
             return flow_low, torch.stack(ups) if self.train_mode else ups[0]
+
+    def unfreeze_bn(self) -> "RAFT":
+        """Let the context encoder's batch norms take the batch's statistics
+        while the net is in training mode, as upstream trains at the chairs
+        stage (``train.py`` calls ``freeze_bn()`` only after it). A net is
+        built frozen: stored statistics in every mode."""
+        for m in self.modules():
+            if isinstance(m, _Norm):
+                m.frozen = False
+        return self
 
     def _upsample(self, flow: torch.Tensor, net: torch.Tensor) -> torch.Tensor:
         """The 1/8 flow at full size: ``upflow8`` (small) or the convex

@@ -10,7 +10,10 @@ ctypes. A build or launch that fails raises. ``corr_lookup.launches``
 counts kernel launches (and, while a profiler runs, the counter
 ``vst.corr_lookup.launches`` of ``vst_torch.core.trace``);
 ``corr_lookup.plain_backwards`` counts the backward
-passes (below), which launch no kernel. The kernel is compiled for the radii of
+passes (below), which launch no kernel of their own; while a profiler runs,
+each records the span ``vst.corr_lookup.backward`` (on autograd's device
+thread on CUDA, so with no enclosing span) and the counter
+``vst.corr_lookup.backwards``. The kernel is compiled for the radii of
 ``KERNEL_RADII`` (RAFT small uses 3, RAFT full 4); on CUDA another radius
 raises, on the CPU every radius is computed.
 
@@ -27,7 +30,7 @@ from typing import Sequence
 
 import torch
 
-from vst_torch.core.trace import count
+from vst_torch.core.trace import count, span
 from vst_torch.flow.corr import lookup_pyramid
 from vst_torch.kernels import _nvcc
 
@@ -121,14 +124,15 @@ class _CorrLookup(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad):
         corr_lookup.plain_backwards += 1
+        count("vst.corr_lookup.backwards")
         coords, *pyramid = ctx.saved_tensors
-        with torch.enable_grad():
+        with span("vst.corr_lookup.backward"), torch.enable_grad():
             inputs = [t.detach().requires_grad_(need) for t, need in
                       zip([coords, *pyramid], ctx.needs_input_grad[1:])]
             out = lookup_pyramid(inputs[1:], inputs[0], ctx.radius)
             wanted = [t for t in inputs if t.requires_grad]
             grads = iter(torch.autograd.grad(out, wanted, grad, allow_unused=True))
-        return (None, *[next(grads) if t.requires_grad else None for t in inputs])
+            return (None, *[next(grads) if t.requires_grad else None for t in inputs])
 
 
 def corr_lookup(pyramid: Sequence[torch.Tensor], coords: torch.Tensor,
