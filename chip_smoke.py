@@ -154,9 +154,11 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
    OneCycle, batch norm on batch statistics) on batches of FlyingChairs
    with its stage's augmentor over a 384×512 `data/*.ppm` + `*.flo` tree of
    affine-motion pairs: 9 steps (the median of the last 6 by CUDA events,
-   images/s, peak memory, every loss finite, exactly 12 launches and 12
-   plain backward passes of the lookup a step), the lookup's forward and
-   backward at that shape, one step under torch.profiler; RAFT small (12
+   images/s, peak memory, every loss finite, exactly 12 launches of the
+   lookup and 12 of its backward kernel a step, no plain backward), the
+   lookup's forward and backward at that shape (the backward kernel's
+   gradient against the plain autograd's, its time beside its bound and the
+   plain autograd's), one step under torch.profiler; RAFT small (12
    iterations, radius 3) at 4×3×432×1024 through the kernel after the same
    net at 64×96 against the plain lookup (≤ 1e-3 px), 12 launches a call.
 20. demos: `demo-web` through its classes (Huang, 3 styles, 436×1024, on a
@@ -286,6 +288,10 @@ RADIUS = 4
 LEVELS = 4
 KERNEL_ERR = 0.0  # corr_lookup against lookup_pyramid: same operation order, bit for bit
 GRAD_ATOL = 1e-5
+# the backward kernel's level gradients against the plain autograd's, of
+# max |want|: a pixel sums at most 4 products (9 where corners round onto it)
+# in another order than autograd's sort
+LOOKUP_BWD_RTOL = 1e-6
 FLOW_ATOL_PX = 1e-3
 TCL_RTOL = 1e-4
 # pad_conv3x3 against its plain version: f32 sums of up to 9·128 terms with
@@ -861,8 +867,9 @@ def phase_stylize_video(dev):
 
 def reset_counts() -> None:
     """Every kernel's launch count to 0, just before a path is driven (and
-    the lookup's backward passes, which launch no kernel)."""
+    the lookup's plain backward passes, which launch no kernel)."""
     corr_lookup.launches = 0
+    corr_lookup.backward_launches = 0
     corr_lookup.plain_backwards = 0
     pad_conv3x3.launches.clear()
     gemm_rate.launches.clear()
@@ -1914,8 +1921,14 @@ def flow_batches(dataset, n_batches, dev):
 def lookup_fwd_bwd_ms(dev):
     """The lookup at the chairs stage's shape (B = 10, 46×62 queries, 4
     levels, radius 4): the kernel's forward held against the plain version
-    on these inputs (KERNEL_ERR), then timed, and the backward (the plain
-    version's recompute and autograd), each by CUDA events over 10 calls."""
+    on these inputs (KERNEL_ERR), then timed; the backward kernel's level
+    gradients held against the plain autograd's (≤ LOOKUP_BWD_RTOL of
+    max |want|), then timed alone (``bwd_kernel_ms``: the allocation and
+    the launch, as the backward runs them), through autograd (``bwd_ms``:
+    forward and backward less the forward) and as the plain autograd
+    (``plain_bwd_ms``: its recompute and its gradient, what the backward
+    ran before the kernel), each by CUDA events over 10 calls; ``bwd_bound_ms``
+    is the op's bytes at its boundary over the memory rate."""
     B, h, w = RT_BATCH, RT_CROP[0] // 8, RT_CROP[1] // 8
     g = torch.Generator(device=dev).manual_seed(9)
     f1 = torch.randn(B, 256, h, w, generator=g, device=dev)
@@ -1929,10 +1942,29 @@ def lookup_fwd_bwd_ms(dev):
     if err != KERNEL_ERR or not math.isfinite(err):
         raise AssertionError(f"corr_lookup vs plain at the chairs stage: {err} != {KERNEL_ERR}")
     upstream = torch.randn_like(out)
+
+    def plain_bwd():
+        with torch.enable_grad():
+            return torch.autograd.grad(lookup_pyramid(pyramid, coords, RADIUS), pyramid, upstream)
+
+    got, want = torch.autograd.grad(out, pyramid, upstream), plain_bwd()
+    bwd_err = max(((a - b).abs().max() / b.abs().max()).item() for a, b in zip(got, want))
+    if not bwd_err <= LOOKUP_BWD_RTOL:
+        raise AssertionError(f"corr_lookup backward vs plain at the chairs stage: {bwd_err} > "
+                             f"{LOOKUP_BWD_RTOL} of max |want|")
+    del got, want
+    needs = [False] + [True] * LEVELS
     fwd = time_ms(lambda: corr_lookup(pyramid, coords, RADIUS), 10)
     bwd = time_ms(lambda: torch.autograd.grad(corr_lookup(pyramid, coords, RADIUS), pyramid,
                                               upstream), 10) - fwd
-    return {"shape": [B, h, w], "max_abs_err": err, "fwd_ms": fwd, "bwd_ms": bwd}
+    kernel = time_ms(lambda: corr_lookup_module._launch_grad(pyramid, coords, upstream, RADIUS,
+                                                             needs), 10)
+    plain = time_ms(plain_bwd, 10)
+    dense = sum(t.shape[2] * t.shape[3] for t in pyramid)
+    bound_bytes = 4 * B * h * w * (dense + upstream.shape[1] + 2)
+    return {"shape": [B, h, w], "max_abs_err": err, "bwd_max_rel_err": bwd_err, "fwd_ms": fwd,
+            "bwd_ms": bwd, "bwd_kernel_ms": kernel, "plain_bwd_ms": plain,
+            "bwd_bound_ms": bound_bytes / PEAK_BYTES_PER_S * 1e3, "bwd_bound_bytes": bound_bytes}
 
 
 def raft_train_card_vs_cpu(dev):
@@ -2022,11 +2054,12 @@ def phase_raft_train(dev):
     torch.cuda.synchronize()
     step_ms = [a.elapsed_time(b) for a, b in ms]
     losses = torch.stack(losses).tolist()
-    launches, backwards = corr_lookup.launches, corr_lookup.plain_backwards
+    launches, backwards = corr_lookup.launches, corr_lookup.backward_launches
     want = RT_ITERS * len(batches)
-    if launches != want or backwards != want:
+    if launches != want or backwards != want or corr_lookup.plain_backwards != 0:
         raise AssertionError(f"raft_train: corr_lookup {launches} launches and {backwards} "
-                             f"backward passes, want {want} each")
+                             f"backward launches, want {want} each, and "
+                             f"{corr_lookup.plain_backwards} plain backwards, want 0")
     if not all(math.isfinite(v) for v in losses):
         raise AssertionError(f"raft_train: a loss is not finite: {losses}")
     median = float(np.median(step_ms[RT_WARMUP:]))
@@ -2036,11 +2069,12 @@ def phase_raft_train(dev):
         "warmup": RT_WARMUP, "step_ms": step_ms, "step_ms_median": median,
         "images_per_s": RT_BATCH / median * 1e3,
         "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30, "losses": losses,
-        "corr_lookup_launches": launches, "corr_lookup_plain_backwards": backwards}
+        "corr_lookup_launches": launches, "corr_lookup_backward_launches": backwards}
     lookup = lookup_fwd_bwd_ms(dev)
     record["lookup_at_train_shape"] = {
         **lookup, "per_step_fwd_ms": RT_ITERS * lookup["fwd_ms"],
         "per_step_bwd_ms": RT_ITERS * lookup["bwd_ms"],
+        "per_step_plain_bwd_ms": RT_ITERS * lookup["plain_bwd_ms"],
         "bwd_share_of_step": RT_ITERS * lookup["bwd_ms"] / median}
     profile = profile_call(lambda: step(batches[0]))
     record["profile"] = profile

@@ -215,9 +215,11 @@ SYNTHETIC = {"spans": {"vst.train.loss": {"device_ms": 800.0, "calls": 2},
                        "vst.train.backward": {"device_ms": 1400.0, "calls": 2},
                        "vst.train.optimizer": {"device_ms": 20.0, "calls": 4},
                        "vst.corr_lookup.backward": {"device_ms": 480.0, "calls": 24}},
-             "counters": {"vst.train.iterations": 2, "vst.corr_lookup.backwards": 24}}
+             "counters": {"vst.train.iterations": 2, "vst.corr_lookup.backwards": 24,
+                          "vst.corr_lookup.backward_launches": 24}}
 READERS = {"fwd_ms.raft_train": 400.0, "bwd_ms.raft_train": 700.0, "optim_ms.raft_train": 10.0,
            "lookup_bwd_ms.raft_train": 240.0, "corr_lookup_backwards.raft_train": 12.0,
+           "corr_lookup_backward_launches.raft_train": 12.0,
            "lookup_bwd_roofline.raft_train": 100.0 * 24 * 0.139e-3 * 1e3 / 480.0}
 
 

@@ -18,38 +18,39 @@
 Every name starts with ``vst.``, so no span reads as a kernel by name. The
 spans and counters of the port:
 
-=============================  =====================================================
-``vst.eval.call``              ``evaluate_videos``' body (root)
-``vst.eval.upload``            ``frames_to_device``: the host transform, the copy
-``vst.eval.dt``                the DT chain of one (video, style)
-``vst.eval.ops``               one pair's fb mask, warp and masked RMS
-``vst.eval.frames_scored``     counter: frames with a TCL value
-``vst.eval.stylize_calls``     counter: calls of the harness's ``stylize_fn``
-``vst.eval.stylize_reuses``    counter: stylized frames a pass took from its store
-``vst.eval.host_reads``        counter: values the harness reads to the host
-``vst.eval.load``              FastStyleNet's weights loaded for an evaluation
-``vst.raft.call``              ``RAFT.forward``
-``vst.raft.encode``            RAFT's feature and context encoders
-``vst.raft.corr``              the correlation pyramid
-``vst.raft.update``            the update loop with its lookups and the upsample
-``vst.corr_lookup.launches``   counter: launches of the lookup kernel
-``vst.corr_lookup.backward``   the lookup's backward (the plain version's autograd)
-``vst.corr_lookup.backwards``  counter: the lookup's backward passes
-``vst.stream.call``            ``stylize_frames`` (root)
-``vst.stream.upload``          a chunk from numpy to the device in its dtype
-``vst.stream.download``        a styled chunk back to numpy
-``vst.stream.frames``          counter: frames styled
-``vst.stream.pageable_bytes``  counter: bytes of both pageable copies
-``vst.train.iteration``        ``train_iteration`` of ``StarGAN2Trainer``, ``RAFTTrainer`` (root)
-``vst.train.d_loss``           a D step's forward, R1's double backward included
-``vst.train.g_loss``           a G step's forward
-``vst.train.loss``             RAFT's training forward and its sequence loss
-``vst.train.backward``         ``loss.backward()`` of a step
-``vst.train.optimizer``        zero_grad, the gradient all-reduce or clip, AdamW, the schedule
-``vst.train.ema``              the EMA update
-``vst.train.iterations``       counter: iterations
-``vst.bench.<name>``           one config of ``vst_torch.bench``
-=============================  =====================================================
+=====================================  =============================================================
+``vst.eval.call``                      ``evaluate_videos``' body (root)
+``vst.eval.upload``                    ``frames_to_device``: the host transform, the copy
+``vst.eval.dt``                        the DT chain of one (video, style)
+``vst.eval.ops``                       one pair's fb mask, warp and masked RMS
+``vst.eval.frames_scored``             counter: frames with a TCL value
+``vst.eval.stylize_calls``             counter: calls of the harness's ``stylize_fn``
+``vst.eval.stylize_reuses``            counter: stylized frames a pass took from its store
+``vst.eval.host_reads``                counter: values the harness reads to the host
+``vst.eval.load``                      FastStyleNet's weights loaded for an evaluation
+``vst.raft.call``                      ``RAFT.forward``
+``vst.raft.encode``                    RAFT's feature and context encoders
+``vst.raft.corr``                      the correlation pyramid
+``vst.raft.update``                    the update loop with its lookups and the upsample
+``vst.corr_lookup.launches``           counter: launches of the lookup kernel
+``vst.corr_lookup.backward``           the lookup's backward (the backward kernel on CUDA)
+``vst.corr_lookup.backwards``          counter: the lookup's backward passes
+``vst.corr_lookup.backward_launches``  counter: launches of the backward kernel
+``vst.stream.call``                    ``stylize_frames`` (root)
+``vst.stream.upload``                  a chunk from numpy to the device in its dtype
+``vst.stream.download``                a styled chunk back to numpy
+``vst.stream.frames``                  counter: frames styled
+``vst.stream.pageable_bytes``          counter: bytes of both pageable copies
+``vst.train.iteration``                ``train_iteration`` of StarGAN2Trainer and RAFTTrainer (root)
+``vst.train.d_loss``                   a D step's forward, R1's double backward included
+``vst.train.g_loss``                   a G step's forward
+``vst.train.loss``                     RAFT's training forward and its sequence loss
+``vst.train.backward``                 ``loss.backward()`` of a step
+``vst.train.optimizer``                zero_grad, the all-reduce or clip, AdamW, the schedule
+``vst.train.ema``                      the EMA update
+``vst.train.iterations``               counter: iterations
+``vst.bench.<name>``                   one config of ``vst_torch.bench``
+=====================================  =============================================================
 """
 
 from __future__ import annotations

@@ -1,25 +1,29 @@
 """Wrapper of the Hopper correlation-window lookup
 (``vst_torch/csrc/corr_lookup.cu``), which replaces the TPU kernel
-``vst/kernels/pallas_corr.py`` (``_kernel`` / ``pallas_lookup_level``).
+``vst/kernels/pallas_corr.py`` (``_kernel`` / ``pallas_lookup_level``), and
+of its backward kernel.
 
 ``corr_lookup(pyramid, coords, radius)`` computes
 ``vst_torch.flow.corr.lookup_pyramid``: for CPU tensors by calling it, for
 CUDA tensors by launching the kernel, which it builds with ``nvcc`` at first
 use into ``vst_torch/_build/`` (listed in ``.gitignore``) and loads with
 ctypes. A build or launch that fails raises. ``corr_lookup.launches``
-counts kernel launches (and, while a profiler runs, the counter
-``vst.corr_lookup.launches`` of ``vst_torch.core.trace``);
-``corr_lookup.plain_backwards`` counts the backward
-passes (below), which launch no kernel of their own; while a profiler runs,
-each records the span ``vst.corr_lookup.backward`` (on autograd's device
-thread on CUDA, so with no enclosing span) and the counter
-``vst.corr_lookup.backwards``. The kernel is compiled for the radii of
-``KERNEL_RADII`` (RAFT small uses 3, RAFT full 4); on CUDA another radius
-raises, on the CPU every radius is computed.
+counts the forward kernel's launches (and, while a profiler runs, the
+counter ``vst.corr_lookup.launches`` of ``vst_torch.core.trace``). The
+kernel is compiled for the radii of ``KERNEL_RADII`` (RAFT small uses 3,
+RAFT full 4); on CUDA another radius raises, on the CPU every radius is
+computed.
 
-Backward: the TPU kernel had no backward kernel of its own
-(``pallas_corr.py:_lookup_bwd``), so the backward recomputes through the
-plain version's autograd, on whichever device the inputs lie.
+Backward: on CUDA one launch of ``lookup_grad_kernel`` writes each level's
+dense gradient (and the coordinates' gradient when autograd asks for it);
+``corr_lookup.backward_launches`` counts its launches (counter
+``vst.corr_lookup.backward_launches``). The TPU kernel had no backward
+(``pallas_corr.py:_lookup_bwd`` recomputes through the plain version's
+VJP), so on the CPU the backward recomputes through ``lookup_pyramid``'s
+autograd, counted by ``corr_lookup.plain_backwards``. Either way, while a
+profiler runs, each backward pass records the span
+``vst.corr_lookup.backward`` (on autograd's device thread on CUDA, so with
+no enclosing span) and the counter ``vst.corr_lookup.backwards``.
 """
 
 from __future__ import annotations
@@ -36,11 +40,19 @@ from vst_torch.kernels import _nvcc
 
 MAX_LEVELS = 4
 KERNEL_RADII = (3, 4)
-_ENTRY_POINTS = {"corr_lookup_launch": (
-    [ctypes.c_void_p] * 4
-    + [ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int), ctypes.c_int,
-       ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
-       ctypes.c_int, ctypes.c_void_p])}
+_LEVELS = ctypes.c_void_p * MAX_LEVELS
+_SIZES = ctypes.c_int * MAX_LEVELS
+_ENTRY_POINTS = {
+    "corr_lookup_launch": (
+        [ctypes.c_void_p] * 4
+        + [ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int), ctypes.c_int,
+           ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
+           ctypes.c_int, ctypes.c_void_p]),
+    "lookup_grad_launch": (
+        [_LEVELS, _LEVELS, _SIZES, _SIZES, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+        + [ctypes.c_longlong] * 3
+        + [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
+           ctypes.c_void_p])}
 
 
 def build() -> str:
@@ -90,26 +102,64 @@ def _kernel():
     return _nvcc.load("corr_lookup", _ENTRY_POINTS)[0].corr_lookup_launch
 
 
-def _launch(pyramid: Sequence[torch.Tensor], coords: torch.Tensor, radius: int) -> torch.Tensor:
-    # the kernel runs on the current device, which a stream handle of 0 (the
+@functools.cache
+def _grad_kernel():
+    """The backward kernel's C entry point (the same library)."""
+    return _nvcc.load("corr_lookup", _ENTRY_POINTS)[0].lookup_grad_launch
+
+
+def _check_current_device(coords: torch.Tensor) -> None:
+    # the kernels run on the current device, which a stream handle of 0 (the
     # default stream) does not name
     if coords.get_device() != torch.cuda.current_device():
         raise ValueError(f"corr_lookup: inputs are on {coords.device}, the current device is "
                          f"cuda:{torch.cuda.current_device()}; launch under torch.cuda.device")
+
+
+def _sizes(pyramid: Sequence[torch.Tensor]):
+    return (_SIZES(*[lvl.shape[2] for lvl in pyramid]),
+            _SIZES(*[lvl.shape[3] for lvl in pyramid]))
+
+
+def _launch(pyramid: Sequence[torch.Tensor], coords: torch.Tensor, radius: int) -> torch.Tensor:
+    _check_current_device(coords)
     B, _, H, W = coords.shape
     n = 2 * radius + 1
     out = torch.empty((B, H, W, len(pyramid) * n * n), dtype=torch.float32,
                       device=coords.device)
     ptrs = [lvl.data_ptr() for lvl in pyramid] + [None] * (MAX_LEVELS - len(pyramid))
-    heights = (ctypes.c_int * MAX_LEVELS)(*[lvl.shape[2] for lvl in pyramid])
-    widths = (ctypes.c_int * MAX_LEVELS)(*[lvl.shape[3] for lvl in pyramid])
-    err = _kernel()(*ptrs, heights, widths, len(pyramid), coords.data_ptr(), out.data_ptr(),
+    err = _kernel()(*ptrs, *_sizes(pyramid), len(pyramid), coords.data_ptr(), out.data_ptr(),
                     B * H * W, H * W, radius, torch.cuda.current_stream(coords.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"corr_lookup kernel launch failed: cudaError {err}")
     corr_lookup.launches += 1
     count("vst.corr_lookup.launches")
     return out.permute(0, 3, 1, 2)
+
+
+def _launch_grad(pyramid: Sequence[torch.Tensor], coords: torch.Tensor, grad: torch.Tensor,
+                 radius: int, needs: Sequence[bool]) -> list:
+    """The gradients of coords and of each level (None where ``needs``, in
+    that order, does not ask for one), by one launch of the backward
+    kernel, which writes every element of what it returns."""
+    _check_current_device(coords)
+    B, _, H, W = coords.shape
+    if H > 1 and W > 1 and grad.stride(2) != W * grad.stride(3):
+        grad = grad.contiguous()  # rows and columns must fold into one query index
+    sb, sc, sy, sx = grad.stride()
+    dcoords = torch.empty_like(coords) if needs[0] else None
+    dlevels = [torch.empty_like(lvl) if need else None for lvl, need in zip(pyramid, needs[1:])]
+    maps = _LEVELS(*[lvl.data_ptr() for lvl in pyramid])
+    dmaps = _LEVELS(*[None if d is None else d.data_ptr() for d in dlevels])
+    err = _grad_kernel()(maps, dmaps, *_sizes(pyramid), len(pyramid), coords.data_ptr(),
+                         grad.data_ptr(), sb, sx if W > 1 else sy, sc,
+                         None if dcoords is None else dcoords.data_ptr(), B * H * W, H * W,
+                         radius, torch.cuda.current_stream(coords.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"corr_lookup backward kernel launch failed: cudaError {err}")
+    corr_lookup.backward_launches += 1
+    count("vst.corr_lookup.backward_launches")
+    return [dcoords, *dlevels]
 
 
 class _CorrLookup(torch.autograd.Function):
@@ -123,16 +173,20 @@ class _CorrLookup(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad):
-        corr_lookup.plain_backwards += 1
         count("vst.corr_lookup.backwards")
         coords, *pyramid = ctx.saved_tensors
-        with span("vst.corr_lookup.backward"), torch.enable_grad():
-            inputs = [t.detach().requires_grad_(need) for t, need in
-                      zip([coords, *pyramid], ctx.needs_input_grad[1:])]
-            out = lookup_pyramid(inputs[1:], inputs[0], ctx.radius)
-            wanted = [t for t in inputs if t.requires_grad]
-            grads = iter(torch.autograd.grad(out, wanted, grad, allow_unused=True))
-            return (None, *[next(grads) if t.requires_grad else None for t in inputs])
+        needs = ctx.needs_input_grad[1:]
+        with span("vst.corr_lookup.backward"):
+            if coords.is_cuda:
+                return (None, *_launch_grad(pyramid, coords, grad, ctx.radius, needs))
+            corr_lookup.plain_backwards += 1
+            with torch.enable_grad():
+                inputs = [t.detach().requires_grad_(need)
+                          for t, need in zip([coords, *pyramid], needs)]
+                out = lookup_pyramid(inputs[1:], inputs[0], ctx.radius)
+                wanted = [t for t in inputs if t.requires_grad]
+                grads = iter(torch.autograd.grad(out, wanted, grad, allow_unused=True))
+                return (None, *[next(grads) if t.requires_grad else None for t in inputs])
 
 
 def corr_lookup(pyramid: Sequence[torch.Tensor], coords: torch.Tensor,
@@ -152,4 +206,5 @@ def corr_lookup(pyramid: Sequence[torch.Tensor], coords: torch.Tensor,
 
 
 corr_lookup.launches = 0
+corr_lookup.backward_launches = 0
 corr_lookup.plain_backwards = 0

@@ -47,12 +47,13 @@ from vst_torch.core.timing import cold_pool, graph_ms, host_ms, windows_ms
 from vst_torch.flow.corr import build_pyramid
 from vst_torch.flow.raft import coords_grid
 from vst_torch.kernels import _nvcc
-from vst_torch.kernels.corr_lookup import _ENTRY_POINTS as CORR_ENTRY
+from vst_torch.kernels.corr_lookup import _ENTRY_POINTS as CORR_ENTRY_POINTS
 from vst_torch.kernels import pad_conv3x3 as conv_module
 from vst_torch.kernels.pad_conv3x3 import _ENTRY_POINTS as CONV_ENTRY
 from vst_torch.probes import bisect_im2col
 
 TRIALS = _nvcc.BUILD_DIR / "trials"
+CORR_ENTRY = {"corr_lookup_launch": CORR_ENTRY_POINTS["corr_lookup_launch"]}  # the forward's
 
 CORR_VARIANTS: Dict[str, List[Tuple[str, str]]] = {
     "kernel": [],
