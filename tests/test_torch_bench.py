@@ -114,19 +114,6 @@ def test_bench_refuses_the_cpu():
         bench.run(device="cpu")
 
 
-def test_main_path_ab_refuses_the_cpu():
-    """The A/B probe's process for ``DIR+module`` imports the module and the
-    checkout's chip_smoke, then stops without a card."""
-    import subprocess
-    import sys
-
-    root = Path(__file__).resolve().parents[1]
-    probe = root / "vst_torch" / "probes" / "main_path_ab.py"
-    done = subprocess.run([sys.executable, str(probe), "--time", str(root), "scipy.linalg"],
-                          cwd=root, capture_output=True, text=True, timeout=120)
-    assert done.returncode != 0 and "needs a CUDA device" in done.stderr
-
-
 def test_bench_raft_arguments():
     args = parser().parse_args(["bench-raft"])
     assert (tuple(args.hw), args.raft_iters, args.iters, args.device) == ((436, 1024), 20, 5, "cuda")

@@ -10,9 +10,15 @@ variant's E step (and MoGAN's M step) on the card against the CPU, MoGAN's
 and ConGAN's with RAFT through the kernel; RAFT small and train mode through
 the kernel against the plain lookup, RAFT's sequence loss and its gradients
 on the card against the CPU, and ``precompute_lt_flow`` through the kernel
-against the plain lookup. Marked ``cuda``; they skip where there
-is no CUDA device. On a machine with an H100 (``--noconftest``: the suite's
-conftest needs jax, which these tests do not):
+against the plain lookup; Johnson's loss falling on one batch at 256² × 16,
+an OBST closure in float32 and the FAN's heatmaps on the card against the
+CPU; the feed-forward Sintel drivers through the kernel against the plain
+lookup and the GAN families' drivers on the card against the CPU; at the
+Sintel size, the lookup's launches of RAFT small, of ``precompute_lt_flow``
+and of the sharded evaluation on a one-rank NCCL group, which also matches
+the serial harness. Marked ``cuda``; they skip where there is no CUDA
+device. On a machine with an H100 (``--noconftest``: the suite's conftest
+needs jax, which these tests do not):
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q -m cuda
 """
@@ -247,14 +253,16 @@ def test_bf16_raft_through_the_kernel_matches_plain_lookup(dev, encoder_dtype, u
     torch.testing.assert_close(up_fast, up_plain, atol=0, rtol=0)
 
 
-@pytest.mark.parametrize("method", ["johnson", "dumoulin", "huang", "reconet", "ruder"])
+@pytest.mark.parametrize("method", ["johnson", "dumoulin", "huang", "reconet", "ruder",
+                                    "ruder_zero"])
 def test_training_step_on_the_card_matches_the_cpu(dev, method):
-    """One step at 64×64, batch 2 (Ruder unrolled): the loss and its terms in
-    float32 within 1e-4 relative; every parameter's gradient in float64
-    within 1e-3 relative in L2 (``vst_torch.train.parity``: in float32 the
-    ReLUs and max-pools that rounding switches decide 0.6–2 % of a
-    parameter's gradient)."""
-    coin = True if method == "ruder" else None
+    """One step at 64×64, batch 2 (Ruder unrolled; ``ruder_zero`` takes the
+    coin's other side): the loss and its terms in float32 within 1e-4
+    relative; every parameter's gradient in float64 within 1e-3 relative in
+    L2 (``vst_torch.train.parity``: in float32 the ReLUs and max-pools that
+    rounding switches decide 0.6–2 % of a parameter's gradient)."""
+    coin = {"ruder": True, "ruder_zero": False}.get(method)
+    method = "ruder" if coin is not None else method
     (want, want_aux, _), (got, got_aux, _) = (training_step(method, d, torch.float32, coin)
                                               for d in ("cpu", dev))
     assert abs(got - want) <= 1e-4 * abs(want)
@@ -469,3 +477,224 @@ def test_world_size_one_nccl_step_is_the_plain_step(dev, tmp_path):
         torch.distributed.destroy_process_group()
     assert all(same), f"{same.count(False)} tensors differ"
     assert all(torch.isfinite(v).all() for v in terms.values())
+
+
+def test_johnson_learns_on_one_batch_on_the_card(dev, tmp_path):
+    """vst's own check (``tests/test_train_faststyle.py:49-53``) at the
+    README's size: on one fixed batch of 16 at 256² from the device cache,
+    Johnson's loss is finite for 20 steps and lower at the last than at the
+    first."""
+    from vst_torch.data.datagen import pack_fc2_npy
+    from vst_torch.data.styles import load_style_images
+    from vst_torch.train.faststyle import FastStyleTrainer
+    from vst_torch.train.registry import select_method
+
+    pack_fc2_npy(str(tmp_path), 64, (256, 256))
+    trainer = FastStyleTrainer(select_method("johnson", batch_size=16),
+                               load_style_images(size=256)[:1], seed=0, device=dev)
+    batch = DeviceFC2Cache(str(tmp_path), seed=1, device=dev).sample(16)
+    losses = torch.stack([trainer.train_step(batch)["loss"] for _ in range(20)]).tolist()
+    assert np.isfinite(losses).all() and losses[-1] < losses[0], losses
+
+
+def obst_closure_loss(device, hw=(64, 64), seed=1):
+    """One float32 OBST closure's loss at ``hw`` (style, content and a live
+    temporal term) on ``device``."""
+    rng = np.random.RandomState(seed)
+    obst = OBST(seed=seed, device=device)
+    obst.set_style(rng.rand(2 * hw[0], 2 * hw[1], 3).astype(np.float32), [hw])
+    x, content, warp_img = (torch.from_numpy(((rng.rand(1, 3, *hw) - 0.45) * 255.0)
+                                             .astype(np.float32)).to(device) for _ in range(3))
+    mask = torch.from_numpy(rng.rand(1, 3, *hw).astype(np.float32)).to(device)
+    with torch.no_grad():
+        feats = obst._features(content, ["r42"])
+        return obst._loss(x, obst.style_targets[0], feats, warp_img, mask, 2000.0).item()
+
+
+def test_obst_closure_loss_on_the_card_matches_the_cpu(dev):
+    want = obst_closure_loss("cpu")
+    assert abs(obst_closure_loss(dev) - want) <= 1e-5 * abs(want)
+
+
+def test_fan_heatmaps_on_the_card_match_the_cpu(dev):
+    """The seeded FAN at 1×3×256², float32 with TF32 off: the heatmaps within
+    1e-3 of their largest magnitude."""
+    from vst_torch.models.wing import FAN
+
+    torch.manual_seed(0)
+    fan_cpu = FAN()
+    fan = FAN().to(dev)
+    fan.load_state_dict(fan_cpu.state_dict())
+    x = torch.from_numpy(np.random.RandomState(0).rand(1, 3, 256, 256).astype(np.float32))
+    with torch.inference_mode():
+        want, _ = fan_cpu(x)
+        got, _ = fan(x.to(dev))
+    assert (got.cpu() - want).abs().max().item() <= 1e-3 * want.abs().max().item()
+
+
+def _clip(n_frames, hw, seed):
+    """(n, H, W, 3) float32 [0, 1]: vst's synthetic clip, one texture under
+    seeded affine motion."""
+    from vst_torch.data.synthetic import synthetic_batch
+
+    return synthetic_batch(1, hw, n_frames, seed)["imgs"][0]
+
+
+def _tcl_values(res):
+    return [res[k][f"{k}_small_s{d}"] for k in ("TCL-ST", "TCL-LT") for d in (1, 2, 3)]
+
+
+def _style_net(dev, seed, method="johnson"):
+    """A seeded 3-style net whose output spreads over [0, 255]."""
+    from vst_torch.train.registry import method_net
+
+    torch.manual_seed(seed)
+    net = method_net(method, 3)
+    with torch.no_grad():
+        net.deconv3.conv2d.weight.mul_(300.0)
+    return net.to(dev).eval()
+
+
+@pytest.mark.parametrize("driver", ["faststyle", "ruder"])
+def test_sintel_driver_through_the_kernel_matches_plain_lookup(dev, driver):
+    """A feed-forward Sintel driver on a 7-frame 64×96 clip with RAFT (4
+    iterations) through the kernel and through the plain lookup, the same
+    weights: every TCL value within 1e-4 relative, and positive."""
+    from vst_torch.eval.drivers import evaluate_sintel_faststyle, evaluate_sintel_ruder
+    from vst_torch.eval.sintel import SintelVideo
+
+    small = SintelVideo("small", _clip(7, (64, 96), seed=2))
+    if driver == "faststyle":
+        net = _style_net(dev, 0)
+        sd = net.state_dict()
+
+        def evaluate(raft_apply):
+            return evaluate_sintel_faststyle(net, sd, [small], raft_apply, dt_iters=1,
+                                             device=dev)
+    else:
+        net, pre = _style_net(dev, 4, "ruder"), _style_net(dev, 5)
+        sd, pre_sd = net.state_dict(), pre.state_dict()
+
+        def evaluate(raft_apply):
+            return evaluate_sintel_ruder(net, sd, pre, pre_sd, [small], raft_apply, device=dev)
+    vals = []
+    for lookup in (corr_lookup, lookup_pyramid):
+        torch.manual_seed(2)
+        raft = RAFT(iters=4, lookup=lookup).to(dev).eval()
+        vals.append(_tcl_values(evaluate(lambda a, b: raft(a, b))))
+    assert all(v > 0 for v in vals[1]), vals
+    np.testing.assert_allclose(vals[0], vals[1], rtol=1e-4, atol=0)
+
+
+@pytest.mark.parametrize("family", ["stargan2", "stargan", "cyclegan"])
+def test_gan_sintel_driver_on_the_card_matches_the_cpu(dev, family):
+    """A GAN family's Sintel driver (StarGAN v2 at its 256-pixel widths,
+    StarGAN v1, CycleGAN with three 16-wide generators) on a 7-frame 64×96
+    clip with RAFT (4 iterations), seeded weights, on the card (through the
+    kernel) against the CPU (the plain lookup): every TCL value within 1e-4
+    relative, and positive."""
+    from vst_torch.eval.drivers import (evaluate_sintel_cyclegan, evaluate_sintel_stargan,
+                                        evaluate_sintel_stargan2, stargan2_styles)
+    from vst_torch.eval.sintel import SintelVideo
+    from vst_torch.models.cyclegan import ResnetGenerator
+    from vst_torch.models.stargan import Generator as StarGANGenerator
+    from vst_torch.models.stargan2 import Generator as StarGAN2Generator
+    from vst_torch.models.stargan2 import MappingNetwork
+
+    small = SintelVideo("small", _clip(7, (64, 96), seed=2))
+    vals = []
+    for device in (dev, torch.device("cpu")):
+        torch.manual_seed(2)
+        raft = RAFT(iters=4).to(device).eval()
+        torch.manual_seed(3)
+        if family == "stargan2":
+            g, f = StarGAN2Generator(256, 64, 512).to(device), MappingNetwork(16, 64, 4).to(device)
+            res = evaluate_sintel_stargan2(g, f, [small], lambda a, b: raft(a, b), num_domains=4,
+                                           styles=stargan2_styles(4, 16), dt_iters=1,
+                                           device=device)
+        elif family == "cyclegan":
+            gens = [ResnetGenerator(3, 3, 16).to(device).eval() for _ in range(3)]
+            res = evaluate_sintel_cyclegan(gens, [small], lambda a, b: raft(a, b), dt_iters=1,
+                                           device=device)
+        else:
+            g = StarGANGenerator(64, 4, 6).to(device)
+            res = evaluate_sintel_stargan(g, [small], lambda a, b: raft(a, b), c_dim=4,
+                                          dt_iters=1, device=device)
+        vals.append(_tcl_values(res))
+    assert all(v > 0 for v in vals[1]), vals
+    np.testing.assert_allclose(vals[0], vals[1], rtol=1e-4, atol=0)
+
+
+SINTEL_HW = (432, 1024)  # a Sintel frame as the harness crops it
+
+
+def test_raft_small_at_the_sintel_size_launches_once_an_iteration(dev):
+    """RAFT small (12 iterations, radius 3) in evaluation at 4×3×432×1024
+    through the kernel: 12 launches, and a finite flow of the frames' size."""
+    clip = torch.from_numpy(_clip(5, SINTEL_HW, seed=1).transpose(0, 3, 1, 2).copy()).to(dev)
+    torch.manual_seed(6)
+    raft = RAFT(iters=12, small=True).to(dev).eval()
+    before = corr_lookup.launches
+    with torch.no_grad():
+        _, up = raft(255 * clip[:4], 255 * clip[1:])
+    torch.cuda.synchronize()
+    assert corr_lookup.launches - before == 12
+    assert up.shape == (4, 2, *SINTEL_HW) and torch.isfinite(up).all()
+
+
+def test_precompute_lt_flow_at_the_sintel_size_launches_twice_a_frame(dev, tmp_path):
+    """``precompute_lt_flow`` on an 8-frame 432×1024 clip with RAFT (20
+    iterations, its flows × 0.1 as above): 2 × 20 launches for each of the 3
+    frames past the offset of 5, each output finite and of the frames' size,
+    the masks binary and neither all 0 nor all 1."""
+    torch.manual_seed(0)
+    raft = RAFT(iters=20).to(dev).eval()
+    before = corr_lookup.launches
+    out = precompute_lt_flow(_clip(8, SINTEL_HW, seed=3),
+                             lambda a, b: tuple(0.1 * f for f in raft(255 * a, 255 * b)),
+                             out_dir=str(tmp_path), offset=5, device=dev)
+    assert corr_lookup.launches - before == 2 * 20 * 3
+    assert len(out) == 3 and len(list(tmp_path.iterdir())) == 3
+    assert all(o.shape == (1, *SINTEL_HW, 3) and np.isfinite(o).all() for o in out)
+    masks = np.stack([o[..., 2] for o in out])
+    assert set(np.unique(masks)) <= {0.0, 1.0} and 0.0 < masks.mean() < 1.0
+
+
+def test_sharded_evaluation_on_nccl_at_the_sintel_size_is_the_serial(dev, tmp_path):
+    """With an NCCL group of one rank, ``evaluate_videos_sharded`` on an
+    8-frame 432×1024 clip (a seeded Johnson net, style 0, RAFT at 20
+    iterations through the kernel) gives the serial ``evaluate_videos``'s
+    TCL-ST and TCL-LT within 1e-4 relative, from 2 × (7 + 3) RAFT calls of 20
+    launches each."""
+    from vst_torch.eval.drivers import faststyle_stylize_fn
+    from vst_torch.eval.sintel import SintelVideo, evaluate_videos, evaluate_videos_sharded
+    from vst_torch.parallel.mesh import create_mesh, initialize_distributed
+
+    net = _style_net(dev, 0)
+    stylize = faststyle_stylize_fn(net, net.state_dict())
+    torch.manual_seed(0)
+    raft = RAFT(iters=20).to(dev).eval()
+    calls = [0]
+
+    def raft_apply(a, b):
+        calls[0] += 1
+        return raft(a, b)
+
+    def to_range(frames):  # the feed-forward nets' input range
+        return frames * 2.0 - 1.0
+
+    video = SintelVideo("synthetic", _clip(8, SINTEL_HW, seed=3))
+    serial = evaluate_videos([video], stylize, raft_apply, styles=[0], dt_iters=2,
+                             frame_transform=to_range, device=dev)
+    initialize_distributed(f"file://{tmp_path}/pg", 1, 0, device="cuda")
+    try:
+        calls[0], before = 0, corr_lookup.launches
+        sharded = evaluate_videos_sharded([video], stylize, raft_apply, [0],
+                                          create_mesh(devices=[dev]), frame_transform=to_range)
+        launches = corr_lookup.launches - before
+    finally:
+        torch.distributed.destroy_process_group()
+    assert calls[0] == 2 * (7 + 3) and launches == 20 * calls[0], (calls, launches)
+    for key in ("TCL-ST", "TCL-LT"):
+        want, got = serial[key][f"{key}_mean"], sharded[key][f"{key}_mean"]
+        assert np.isfinite(got) and abs(got - want) <= 1e-4 * abs(want), (key, got, want)

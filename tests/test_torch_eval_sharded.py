@@ -5,7 +5,9 @@ group) and 2 (two spawned gloo ranks, ``tests/torch_dp_cases.py``); vst's on
 its 8-device mesh. With vst's stub flow the per-(video, style) TCL agrees
 within 1e-4 relative, with the full RAFT (2 iterations, the port's seeded
 weights carried into vst) within 2e-3 (vst's own tolerances,
-``tests/test_eval_sintel.py:126-185``)."""
+``tests/test_eval_sintel.py:126-185``). The port's sharded TCL is also held
+to the port's serial ``evaluate_videos`` on the same inputs, within 1e-4
+relative."""
 
 import numpy as np
 import pytest
@@ -21,7 +23,9 @@ from vst.eval.sintel import evaluate_videos_sharded as jevaluate_videos_sharded
 from vst.flow.raft import RAFT as JRAFT
 from vst.flow.raft import raft_params_from_torch
 from vst.parallel.mesh import create_mesh as jcreate_mesh
+from vst_torch.eval.sintel import SintelVideo, evaluate_videos
 from vst_torch.flow.raft import RAFT
+from vst_torch.train.parity import stub_flow
 
 HW = (48, 64)
 N_FRAMES = 9
@@ -65,7 +69,7 @@ def results(tmp_path_factory):
         dp.eval_cases, 2, tmp_path_factory.mktemp("eval"), frames, raft_state,
         meanwhile=lambda: (dp.eval_cases(dp.cpu_mesh(1, 0), frames, raft_state),
                            _vst(frames, raft_state)))
-    return {"vst": vst, 1: single, 2: ranks}
+    return {"vst": vst, 1: single, 2: ranks, "frames": frames, "raft_state": raft_state}
 
 
 @pytest.mark.parametrize("flow", ("stub", "raft"))
@@ -90,3 +94,33 @@ def test_ranks_return_the_same_results_and_vsts_keys(results):
         assert set(a[flow]["DT"]) == set(results["vst"][flow]["DT"])
         assert all(v > 0 for v in a[flow]["DT"].values())
         assert {"DT_toy_s1", "DT_mean", "DT_mean_s2"} <= set(a[flow]["DT"])
+
+
+SERIAL_RTOL = 1e-4
+
+
+@pytest.fixture(scope="module")
+def serial(results):
+    """The port's serial harness on the fixture's frames, styles, stylizer and
+    flows (no DT chain)."""
+    raft = RAFT(iters=2).eval()
+    raft.load_state_dict(results["raft_state"])
+    videos = [SintelVideo("toy", results["frames"])]
+    return {flow: evaluate_videos(videos, dp.stub_stylize, apply, STYLES, dt_iters=0,
+                                  device="cpu")
+            for flow, apply in (("stub", stub_flow), ("raft", raft))}
+
+
+@pytest.mark.parametrize("flow", ("stub", "raft"))
+@pytest.mark.parametrize("world", (1, 2))
+def test_tcl_matches_the_serial_harness(results, serial, world, flow):
+    """Every TCL-ST and TCL-LT value of the sharded harness (RAFT forward and
+    backward as two calls at batch 1 a rank) within 1e-4 relative of the
+    serial one's (RAFT at batch 2 and 4)."""
+    got_all = [results[1]] if world == 1 else results[2]
+    for got in got_all:
+        for kind in KEYS:
+            want = serial[flow][kind]
+            assert set(got[flow][kind]) == set(want)
+            for k, w in want.items():
+                np.testing.assert_allclose(got[flow][kind][k], w, rtol=SERIAL_RTOL, err_msg=k)

@@ -370,7 +370,7 @@ def upsample_flow_convex(flow: torch.Tensor, mask: torch.Tensor) -> torch.Tensor
 
 # Whether RAFT's convolutions of a compute dtype run on cuDNN (True) or on
 # PyTorch's own im2col + cuBLAS path (False), on CUDA: the faster on an H100
-# (chip_smoke.py's raft and raft_bf16 phases, PERF.md). float32 stays off
+# (PERF.md §6, the bring-up's measurements). float32 stays off
 # cuDNN, which with TF32 off ran the update block 70-99x slower; bfloat16
 # takes it, 1.6x faster for fnet and cnet and 2.3x for the update block.
 ON_CUDNN = {torch.float32: False, torch.bfloat16: True}

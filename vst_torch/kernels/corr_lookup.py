@@ -199,7 +199,7 @@ def corr_lookup(pyramid: Sequence[torch.Tensor], coords: torch.Tensor,
     if coords.is_cuda and not (torch.is_grad_enabled() and (
             coords.requires_grad or any(t.requires_grad for t in pyramid))):
         # no graph to record: the autograd.Function's own cost showed in the
-        # lookup's host-launched time (chip_smoke.py phase 2 on the H100:
+        # lookup's host-launched time (chip_smoke.py's kernel phase on the H100:
         # 0.070 ms through it, 0.062-0.063 without)
         return _launch(pyramid, coords, int(radius))
     return _CorrLookup.apply(int(radius), coords, *pyramid)

@@ -4,9 +4,9 @@ or done another way.
 
     python -m vst_torch.probes.kernel_trials
 
-- ``corr_lookup`` at the Sintel tcl2 shape (the inputs of ``chip_smoke.py``
-  phase 2): the kernel; its map reads alone (each lane sums its outputs and
-  stores one float); its stores alone (no map read).
+- ``corr_lookup`` at the Sintel tcl2 shape (the inputs of ``chip_smoke.py``'s
+  kernel phase): the kernel; its map reads alone (each lane sums its outputs
+  and stores one float); its stores alone (no map read).
 - ``pad_conv3x3`` f32 ``full`` and ``mxu_only`` at the trunk shape: the
   kernel; its products alone (the first chunk is staged, the others are not,
   so the sums are wrong: a timing, not a result); its weights brought by

@@ -45,7 +45,6 @@ import numpy as np
 import torch
 
 from vst_torch.models.faststyle import FastStyleNet
-from vst_torch.nn.conv import cudnn_enabled
 from vst_torch.ops.image import resize_bilinear
 from vst_torch.ops.losses import gram_matrix, normalize_imagenet, tv_loss
 from vst_torch.ops.sample import warp_masked
@@ -60,13 +59,6 @@ N_EMPHASIS = {"johnson": 3, "dumoulin": 2, "huang": 4, "reconet": 5, "ruder": 3}
 # each head's terms that are sums over the batch (vst/ops/losses.py:56); the
 # others are batch means
 SUM_TERMS = {"johnson": ("tv",), "huang": ("tv",), "reconet": ("tv",)}
-
-# whether a training step's convolutions run on cuDNN (float32, TF32 off):
-# at 16×3×256×256 on an H100, cuDNN runs VGG16's forward and input gradient
-# 1.05× and FastStyleNet's forward and backward 1.43× faster than PyTorch's
-# own convolutions (chip_smoke.py phase 13, conv_split), for 7 GiB more
-# workspace
-ON_CUDNN = True
 
 
 def ref_lr_schedule(lr0: float, batch_size: int, floor: float = 1e-4) -> Callable[[int], float]:
@@ -166,7 +158,7 @@ class FastStyleTrainer:
 
         # Gram targets (fast_style_transfer.py:740-756): normalize → VGG → Gram
         # per tap, one style at a time, stacked per tap: (S, C_i, C_i)
-        with torch.no_grad(), cudnn_enabled(ON_CUDNN):
+        with torch.no_grad():
             grams: List[List[torch.Tensor]] = []
             for img in style_images:
                 x = torch.from_numpy(np.ascontiguousarray(img.transpose(2, 0, 1)))[None]
@@ -326,10 +318,9 @@ class FastStyleTrainer:
         (no host synchronisation). With a mesh, ``batch`` is the rank's
         shard and the terms are the global batch's."""
         self.opt.zero_grad(set_to_none=True)
-        with cudnn_enabled(ON_CUDNN):
-            loss, aux = self.loss_fn(batch, style_id, coin)
-            loss, aux = share_of_global(loss, aux, self.mesh, SUM_TERMS.get(self.cfg.method, ()))
-            loss.backward()
+        loss, aux = self.loss_fn(batch, style_id, coin)
+        loss, aux = share_of_global(loss, aux, self.mesh, SUM_TERMS.get(self.cfg.method, ()))
+        loss.backward()
         self.apply_gradients()
         return all_reduce_metrics({k: v.detach() for k, v in aux.items()}, self.mesh)
 

@@ -1,6 +1,6 @@
 """One training step's loss and gradients on a device, and the comparison of
 two such steps: how the card's step is held against the CPU's
-(``chip_smoke.py``, ``tests/test_torch_cuda.py``) and the port's against
+(``tests/test_torch_cuda.py``) and the port's against
 vst's (``tests/torch_train_parity.py``). The feed-forward family's step is
 :func:`training_step`; the StarGAN trainers' are :func:`stargan2_steps` and
 :func:`stargan_steps`; the CycleGAN family's :func:`cyclegan_steps`; RAFT's
