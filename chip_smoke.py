@@ -15,8 +15,8 @@ against its plain version on the same inputs; bounds are
 ``vstbench.counts``' (the lookup's bytes and operations, the backward's bytes,
 the H100's peaks) or the probes' own (``vst_torch/core/roofline.py``).
 
-1. build: compile the three kernels (vst_torch/csrc/{corr_lookup,
-   pad_conv3x3,gemm_rate}.cu), one nvcc each, all at once, into
+1. build: compile the four kernel sources (vst_torch/csrc/{corr_lookup,
+   pad_conv3x3,gemm_rate,sepconv_gru}.cu), one nvcc each, all at once, into
    vst_torch/_build/; ptxas registers and spills per library.
 2. kernel: corr_lookup against its plain version lookup_pyramid, bit for
    bit (max |Δ| = 0), at the Sintel tcl2 shape, a ragged shape, the
@@ -50,19 +50,37 @@ the H100's peaks) or the probes' own (``vst_torch/core/roofline.py``).
    64·K (library_ms) and 64 × cuBLAS (library_x64_ms); the kernels line
    lists K = N = 128 and K = 1152, N = 128, each with its own max |Δ| and
    the launches of its timing.
+5b. sepconv_gru: RAFT's SepConvGRU kernels gru_zr and gru_q at the Sintel
+   shape (batch 4, 54×128, x of 256 channels), each pass (1×5, 5×1), the
+   gates at PyTorch's default init: each kernel against its plain version on
+   the inputs it then times (≤ 1e-6 + 1e-5·|plain|), then ms (a chain of 20
+   host-launched calls, CUDA events, best of 3 windows), device_ms (one CUDA
+   graph over copies of x, cold in L2), plain_ms (the plain version with
+   cuDNN off, as RAFT runs it), library_ms (the gate convolutions as the port
+   ran them before the kernels: F.conv2d with cuDNN off on the concatenated
+   input), bound_ms (2·M·K·N operations over the f32 peak) and bound_pct
+   (bound_ms over device_ms); and pack_ms, the gates' packing that each
+   half-step does before its launches.
 
 The CLI's card smoke: each command through ``vst_torch.cli.__main__.main``,
 its JSON line (or results) recorded as it returns them, every value finite,
 and the kernels' launches counted over the command: a path that should
-launch the lookup launched it (exactly, where the count is known), and a
-path that should not launched nothing.
+launch the lookup launched it (exactly, where the count is known), a path
+that runs RAFT's float32 update block outside autograd launched the
+SepConvGRU kernels exactly 4 times for each lookup (2 passes × gru_zr and
+gru_q), and a path that should not launched nothing; `launches_by_path`
+in the kernels line gives both counts of each path.
 
 6. eval_sintel: `eval-sintel` at 436×1024 for johnson and ruder, 3 styles:
    on the synthetic clip with its flow oracle (no launch), then with
    `--sintel-dir` on a Sintel-layout tree of an 8-frame synthetic clip
    written as PNGs (the loader crops it to 432×1024), RAFT at 20
-   iterations through the kernel (exactly 420 launches; Ruder 600).
-7. raft_bf16: `bench-raft` with all five variants at 436×1024.
+   iterations through the kernel (exactly 420 launches; Ruder 600), and 4
+   launches of the SepConvGRU kernels for each lookup.
+7. raft_bf16: `bench-raft` with all five variants at 436×1024: exactly 20
+   lookups for each of its RAFT calls, 4 SepConvGRU launches for each lookup
+   of the variants with a float32 update block (f32, bf16_enc, f32_pad64)
+   and none for the bf16 ones.
 8. stylize_video: `stylize-video` at 436×1024 on 24 synthetic frames, f32 at
    batch 1 and bf16 at batch 8: 24 PNGs and a video (a GIF through PIL on a
    machine without imageio) each.
@@ -73,7 +91,8 @@ path that should not launched nothing.
    steps from the device cache over a 64-sample FC2-layout corpus.
 11. obst: `eval-obst` at 436×1024 on one synthetic 6-frame clip, style 0,
    [50, 40, 30], RAFT through the kernel: λ = 0 and 2000 in float32, then
-   λ = 2000 with --obst-bf16 (TCL-ST at λ = 2000 below λ = 0).
+   λ = 2000 with --obst-bf16 (TCL-ST at λ = 2000 below λ = 0); 4 SepConvGRU
+   launches a lookup.
 12. fc2_metrics: `eval-fc2` at 256² on 4 synthetic batches of 4: --family
    obst (λ 0 and 2000, --iters-pyr 5 5 5), --family faststyle --method
    johnson (--num-outs 3) and --method ruder.
@@ -82,13 +101,16 @@ path that should not launched nothing.
    `--sintel-dir` on phase 6's tree; `train-stargan2` at 256², batch 8, 4
    domains, AdvCon, 6 iterations from the device cache over a 32-sample
    corpus in f32 and in bf16; `train-stargan` at 128², batch 16; `eval-fc2 --family
-   stargan2` (latent and reference) and `--family stargan` at 256².
+   stargan2` (latent and reference) and `--family stargan` at 256². The
+   eval-sintel runs launch 4 SepConvGRU kernels a lookup; the trainers and
+   eval-fc2 launch nothing.
 14. cyclegan: `train-cyclegan` for each variant at 256², batch 4, ngf = ndf
    = 64, RAFT 20 iterations, 6 iterations from the device cache, `--sid 1`,
    in f32 and, for cyclegan and mogan, bf16 (`corr_lookup` launched exactly
-   20 × the RAFT calls: MoGAN 600, 720 in bf16, ConGAN 480, the others 0);
+   20 × the RAFT calls: MoGAN 600, 720 in bf16, ConGAN 480, the others 0;
+   RAFT's flows run outside autograd, so 4 SepConvGRU launches a lookup);
    `eval-sintel --family cyclegan` on the f32 cyclegan, mogan and congan
-   checkpoints over phase 6's tree (exactly 420 launches).
+   checkpoints over phase 6's tree (exactly 420 launches, 1680 SepConvGRU).
 15. datagen: `datagen-corpus` at 256², batch 16, 16 pairs and 3 domains,
    with `--styler procedural` and `--styler gatys` (the tree's layout, one
    batch read through the device cache and CycleGANFC2Dataset);
@@ -98,7 +120,8 @@ path that should not launched nothing.
    iterations) for 3 steps over a FlyingChairs-layout tree of 16 synthetic
    affine-motion pairs at 384×512 with their exact flows: exactly 12
    launches of the lookup and 12 of its backward kernel a step, no plain
-   backward, every loss finite.
+   backward, no launch of the SepConvGRU kernels (autograd records the GRU),
+   every loss finite.
 17. demos: `demo-web` through its classes (Huang, 3 styles, 436×1024, on a
    server bound to port 0, over its 48-frame synthetic clip): the page, the
    controls (style 1 at strength 0.5, half scale for the second half, then
@@ -133,24 +156,29 @@ import torch
 import torch.nn.functional as F
 
 from vst_torch import bench, set_f32_precision
+from vst_torch.cli.__main__ import RAFT_VARIANTS, SLOPE_VARIANTS
 from vst_torch.cli.__main__ import main as cli_main
 from vst_torch.cli.webdemo import WebDemo
 from vst_torch.cli.webdemo import make_handler as make_web_handler
-from vst_torch.core.timing import graph_ms, host_ms
+from vst_torch.core.timing import cold_pool, graph_ms, host_ms
 from vst_torch.data.datagen import generate_fc2_corpus, pack_fc2_npy
 from vst_torch.data.synthetic import _scene as scene
 from vst_torch.data.synthetic import synthetic_batch
 from vst_torch.eval.video import write_png
 from vst_torch.flow.corr import build_pyramid, lookup_pyramid
 from vst_torch.flow.io import write_flo
-from vst_torch.flow.raft import coords_grid
+from vst_torch.flow.raft import SepConvGRU, coords_grid
 from vst_torch.kernels import _nvcc
 from vst_torch.kernels import corr_lookup as corr_lookup_module
 from vst_torch.kernels import gemm_rate as gemm_rate_module
 from vst_torch.kernels import pad_conv3x3 as pad_conv3x3_module
+from vst_torch.kernels import sepconv_gru as sepconv_gru_module
 from vst_torch.kernels.corr_lookup import corr_lookup
 from vst_torch.kernels.gemm_rate import gemm_rate, gemm_rate_plain
 from vst_torch.kernels.pad_conv3x3 import MODES, dtype_name, pad_conv3x3, pad_conv3x3_plain
+from vst_torch.kernels.sepconv_gru import (gru_q, gru_q_plain, gru_zr, gru_zr_plain, pack_gates,
+                                           sepconv_gru)
+from vst_torch.nn.conv import cudnn_enabled
 from vst_torch.probes import bisect_im2col, bisect_kernel_cost, bisect_mxu
 from vstbench.counts.lookup import lookup_bytes_ops
 from vstbench.counts.lookup_bwd import lookup_bwd_bytes
@@ -175,10 +203,21 @@ GEMM_TOL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -7}
 DTYPES = (torch.float32, torch.bfloat16)
 SINTEL_HW = (436, 1024)  # a Sintel frame; the eval harness crops it to 432 rows
 VIDEO_FRAMES = 24
-KERNEL_SOURCES = ("corr_lookup", "pad_conv3x3", "gemm_rate")
+KERNEL_SOURCES = ("corr_lookup", "pad_conv3x3", "gemm_rate", "sepconv_gru")
+# SepConvGRU's kernels against their plain versions: f32 sums of 5 × 384
+# products in another order than the im2col SGEMM's, then the pointwise math
+GRU_ATOL, GRU_RTOL = 1e-6, 1e-5
+GRU_SHAPE = (4, 54, 128)  # RAFT's 1/8 grid of a 432×1024 pair at the harness's batch
 # eval-sintel on phase 6's 8-frame tree, RAFT at 20 iterations: the harness's
 # 21 RAFT calls (12 at batch 2, 9 at batch 4); Ruder's driver 30 (10 a style)
 EVAL_SINTEL_LAUNCHES = {"johnson": 20 * 21, "ruder": 20 * 30}
+# SepConvGRU launches for each lookup of RAFT's float32 update block outside
+# autograd: 2 passes × gru_zr and gru_q
+GRU_PER_LOOKUP = 4
+# bench-raft's RAFT calls of each variant at 20 iterations: the flow's, then
+# for each batch multiple (3 for SLOPE_VARIANTS) a warm-up and 3 windows of 5
+BENCH_RAFT_CALLS = {v: 1 + (3 if v in SLOPE_VARIANTS else 1) * (1 + 3 * 5)
+                    for v in RAFT_VARIANTS}
 CHAIRS_BATCH, CHAIRS_CROP = 10, (368, 496)  # RAFT's chairs stage (train_standard.sh)
 CHAIRS_HW, CHAIRS_PAIRS = (384, 512), 16  # FlyingChairs' own frame size
 CHAIRS_ITERS, CHAIRS_STEPS = 12, 3
@@ -290,6 +329,7 @@ def reset_counts() -> None:
     corr_lookup.plain_backwards = 0
     pad_conv3x3.launches.clear()
     gemm_rate.launches.clear()
+    sepconv_gru.launches = 0
 
 
 def require_launches(counter, keys, path):
@@ -302,7 +342,27 @@ def require_launches(counter, keys, path):
 def kernel_launches():
     return {"corr_lookup": corr_lookup.launches,
             "pad_conv3x3": sum(pad_conv3x3.launches.values()),
-            "gemm_rate": sum(gemm_rate.launches.values())}
+            "gemm_rate": sum(gemm_rate.launches.values()),
+            "sepconv_gru": sepconv_gru.launches}
+
+
+def exact_launches(path, lookups, gru):
+    """The kernels' launches since the last reset, which must be ``lookups``
+    of the lookup, ``gru`` of the SepConvGRU kernels and none of the others:
+    the path's entry of ``launches_by_path``."""
+    want = {"corr_lookup": lookups, "pad_conv3x3": 0, "gemm_rate": 0, "sepconv_gru": gru}
+    launches = kernel_launches()
+    if launches != want:
+        raise AssertionError(f"{path}: launches {launches}, want {want}")
+    return {"corr_lookup": lookups, "sepconv_gru": gru}
+
+
+def raft_launches(path):
+    """``exact_launches`` of a path whose RAFT calls all run the float32
+    update block outside autograd: some lookups, and the SepConvGRU kernels
+    ``GRU_PER_LOOKUP`` times each."""
+    lookups = require_launches(kernel_launches(), ("corr_lookup",), path)["corr_lookup"]
+    return exact_launches(path, lookups, GRU_PER_LOOKUP * lookups)
 
 
 def no_launches(what):
@@ -317,7 +377,7 @@ def phase_build():
     t0 = time.perf_counter()
     logs = _nvcc.build_many(KERNEL_SOURCES)  # one nvcc per source, all at once
     seconds = time.perf_counter() - t0
-    for module in (corr_lookup_module, pad_conv3x3_module, gemm_rate_module):
+    for module in (corr_lookup_module, pad_conv3x3_module, gemm_rate_module, sepconv_gru_module):
         module.build()
     ptxas = {name: [line.strip() for line in log.splitlines()
                     if "registers" in line or "spill" in line]
@@ -558,6 +618,72 @@ def phase_gemm_rate(dev):
     return listed
 
 
+def best_ms(fn, reps: int = 20, windows: int = 3) -> float:
+    """The best of ``windows`` windows of ``time_ms``."""
+    return min(time_ms(fn, reps) for _ in range(windows))
+
+
+def phase_sepconv_gru(dev):
+    """``gru_zr`` and ``gru_q`` of each pass at ``GRU_SHAPE``, each checked
+    against its plain version and then timed (module docstring, 5b)."""
+    B, H, W = GRU_SHAPE
+    torch.manual_seed(21)
+    gru = SepConvGRU(128, 256).to(dev)
+    g = torch.Generator(device=dev).manual_seed(22)
+    h = torch.tanh(torch.randn(B, 128, H, W, generator=g, device=dev))
+    x = torch.relu(torch.randn(B, 256, H, W, generator=g, device=dev))
+    pool = cold_pool(x)
+    ops = 2 * B * H * W * 5 * 384  # operations an output channel
+    measured, pack_ms = {}, {}
+    with torch.no_grad():
+        for tag, name in (("1", "1x5"), ("2", "5x1")):
+            convz, convr, convq = (getattr(gru, f"conv{k}{tag}") for k in "zrq")
+            gates = pack_gates(convz, convr, convq)
+            with cudnn_enabled(False):
+                z_want, rh_want = gru_zr_plain(h, x, convz, convr)
+                h_want = gru_q_plain(h, x, z_want, rh_want, convq)
+            z, rh = gru_zr(h, x, gates)
+            h_got = gru_q(h, x, z_want, rh_want, gates)
+            torch.cuda.synchronize()
+            errs = {}
+            for kernel, pairs in (("gru_zr", ((z, z_want), (rh, rh_want))),
+                                  ("gru_q", ((h_got, h_want),))):
+                for got, want in pairs:
+                    diff = (got - want).abs()
+                    if not bool((diff <= GRU_ATOL + GRU_RTOL * want.abs()).all()):
+                        raise AssertionError(f"{kernel} {name} vs plain: max |Δ| "
+                                             f"{diff.max().item()}")
+                errs[kernel] = max(float((a - b).abs().max()) for a, b in pairs)
+
+            def library_zr():
+                hx = torch.cat([h, x], 1)
+                return convz(hx), convr(hx)
+
+            runs = {"gru_zr": (lambda: gru_zr(h, x, gates), lambda xi: gru_zr(h, xi, gates),
+                               lambda: gru_zr_plain(h, x, convz, convr), library_zr, 256),
+                    "gru_q": (lambda: gru_q(h, x, z, rh, gates),
+                              lambda xi: gru_q(h, xi, z, rh, gates),
+                              lambda: gru_q_plain(h, x, z, rh, convq),
+                              lambda: convq(torch.cat([rh, x], 1)), 128)}
+            for kernel, (fn, graph_fn, plain, library, n_out) in runs.items():
+                reset_counts()
+                ms = best_ms(fn)
+                launches = sepconv_gru.launches
+                with cudnn_enabled(False):
+                    plain_ms, library_ms = best_ms(plain, 5), best_ms(library, 5)
+                bound = ops * n_out / PEAK_F32_OPS_PER_S * 1e3
+                device_ms = graph_ms(graph_fn, pool, 5)
+                measured[f"{kernel}_{name}"] = {
+                    "launches": launches, "max_abs_err": errs[kernel], "ms": ms,
+                    "device_ms": device_ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                    "bound_ms": bound, "bound_by": "operations",
+                    "bound_pct": 100 * bound / device_ms}
+            pack_ms[name] = best_ms(lambda: pack_gates(convz, convr, convq))
+    emit({"phase": "sepconv_gru", "shape": list(GRU_SHAPE), "kernels": measured,
+          "pack_ms": pack_ms})
+    return measured
+
+
 def written_files(root):
     return sorted(os.path.relpath(os.path.join(d, f), root)
                   for d, _, fs in os.walk(root) for f in fs)
@@ -566,7 +692,8 @@ def written_files(root):
 def phase_eval_sintel(dev):
     """The eval-sintel command for Johnson and Ruder at the Sintel size, on
     the synthetic clip with its exact flows (no launch) and on a Sintel tree
-    through RAFT (exactly ``EVAL_SINTEL_LAUNCHES``)."""
+    through RAFT (exactly ``EVAL_SINTEL_LAUNCHES``, and ``GRU_PER_LOOKUP``
+    SepConvGRU launches for each)."""
     record = {"phase": "eval_sintel", "cli": {}}
     launches = {}
     sintel = sintel_tree()
@@ -577,16 +704,13 @@ def phase_eval_sintel(dev):
             with tempfile.TemporaryDirectory() as out_dir:
                 res = cli_main(["eval-sintel", "--method", method, *extra, "--out-dir", out_dir])
                 written = written_files(out_dir)
-            counts = kernel_launches()
             want = EVAL_SINTEL_LAUNCHES[method] if flow == "raft" else 0
-            if counts != {"corr_lookup": want, "pad_conv3x3": 0, "gemm_rate": 0}:
-                raise AssertionError(f"eval-sintel {method} ({flow}): launches {counts}, "
-                                     f"corr_lookup should be {want}")
+            counts = exact_launches(f"eval-sintel {method} ({flow})", want,
+                                    GRU_PER_LOOKUP * want)
             means = finite_positive({k: res[k][f"{k}_mean"] for k in res},
                                     f"eval-sintel {method} ({flow})")
-            record["cli"][f"{method}_{flow}"] = {**means, "written": written,
-                                                 "corr_lookup_launches": counts["corr_lookup"]}
-        launches[f"eval_sintel_{method}"] = EVAL_SINTEL_LAUNCHES[method]
+            record["cli"][f"{method}_{flow}"] = {**means, "written": written, "launches": counts}
+        launches[f"eval_sintel_{method}"] = counts
     sintel.cleanup()
     emit(record)
     return launches
@@ -599,12 +723,14 @@ def phase_raft_bf16(dev):
         cli_main(["bench-raft", "--hw", *map(str, SINTEL_HW), "--out-dir", out_dir])
         with open(f"{out_dir}/raft_timing.json") as f:
             results = json.load(f)
-    launches = require_launches(kernel_launches(), ("corr_lookup",), "bench-raft")
+    f32_update = [v for v, (_, update, _) in RAFT_VARIANTS.items() if update is None]
+    launches = exact_launches("bench-raft", 20 * sum(BENCH_RAFT_CALLS.values()),
+                              GRU_PER_LOOKUP * 20 * sum(BENCH_RAFT_CALLS[v] for v in f32_update))
     timed = [v for k, v in results.items() if k.startswith("pair_ms_")]
     if not timed or not all(math.isfinite(t) and t > 0 for t in timed):
         raise AssertionError(f"bench-raft times not finite and positive: {results}")
     emit({"phase": "raft_bf16", "bench_raft": results, "launches": launches})
-    return launches["corr_lookup"]
+    return launches
 
 
 def video_signature(path):
@@ -697,14 +823,14 @@ def phase_obst(dev):
                     raise AssertionError(f"eval-obst {extra} λ={lam}: not finite: {entry}")
                 record["eval_obst"][f"{summary['obst_dtype']}_lambda{lam}"] = entry
         written = written_files(tmp)
-    launches = require_launches(kernel_launches(), ("corr_lookup",), "eval-obst")
+    launches = raft_launches("eval-obst")
     f32 = record["eval_obst"]
     if not f32["float32_lambda2000"]["TCL-ST_mean"] < f32["float32_lambda0"]["TCL-ST_mean"]:
         raise AssertionError(f"eval-obst: TCL-ST at λ=2000 not below λ=0: {f32}")
     record.update({"clip": [OBST_FRAMES, *SINTEL_HW], "styles": [0], "iters_pyr": [50, 40, 30],
-                   "written": written, "corr_lookup_launches": launches["corr_lookup"]})
+                   "written": written, "launches": launches})
     emit(record)
-    return launches["corr_lookup"]
+    return launches
 
 
 def fc2_run(argv, name):
@@ -761,11 +887,10 @@ def phase_stargan(dev):
         with tempfile.TemporaryDirectory() as out_dir:
             res = cli_main(["eval-sintel", "--family", family, "--sintel-dir", sintel.name,
                             "--dt-iters", str(GAN_DT_ITERS), "--out-dir", out_dir])
-        launches[family] = corr_lookup.launches
-        require_launches(launches, (family,), "eval-sintel --family")
+        launches[family] = raft_launches(f"eval-sintel --family {family}")
         record["eval_sintel"][family] = {
             **finite_positive({k: res[k][f"{k}_mean"] for k in res}, f"eval-sintel {family}"),
-            "corr_lookup_launches": launches[family]}
+            "launches": launches[family]}
     sintel.cleanup()
 
     with tempfile.TemporaryDirectory() as tmp:
@@ -818,18 +943,15 @@ def phase_cyclegan(dev):
             reset_counts()
             res = cli_main(["train-cyclegan", "--variant", variant, *common, *extra,
                             "--out-dir", os.path.join(tmp, name)])
-            counts = kernel_launches()
             e_calls, m_calls = CG_RAFT_CALLS[variant]
             if variant == "mogan" and extra:  # the loss's flows of the cast frames
                 e_calls += 2
             steps_e = (GAN_ITERS + 1) // 2 if variant == "mogan" else GAN_ITERS
             want = 20 * (steps_e * e_calls + (GAN_ITERS - steps_e) * m_calls)
-            if counts != {"corr_lookup": want, "pad_conv3x3": 0, "gemm_rate": 0}:
-                raise AssertionError(f"train-cyclegan {name}: launches {counts}, corr_lookup "
-                                     f"should be {want}")
+            counts = exact_launches(f"train-cyclegan {name}", want, GRU_PER_LOOKUP * want)
             if res["n_nonfinite"]:
                 raise AssertionError(f"{name}: a loss is not finite: {res['last_losses']}")
-            launches[f"train_{name}"] = counts["corr_lookup"]
+            launches[f"train_{name}"] = counts
             record["train"][name] = {k: v for k, v in res.items()
                                      if k not in ("losses", "checkpoints")}
 
@@ -842,14 +964,11 @@ def phase_cyclegan(dev):
                             "--ckpt-dir", specs, "--dt-iters", str(GAN_DT_ITERS),
                             "--out-dir", out_dir])
         sintel.cleanup()
-        counts = kernel_launches()
-        if counts != {"corr_lookup": 420, "pad_conv3x3": 0, "gemm_rate": 0}:
-            raise AssertionError(f"eval-sintel --family cyclegan: launches {counts}, "
-                                 "corr_lookup should be 420")
-        launches["eval_sintel_cyclegan"] = counts["corr_lookup"]
+        counts = exact_launches("eval-sintel --family cyclegan", 420, GRU_PER_LOOKUP * 420)
+        launches["eval_sintel_cyclegan"] = counts
         record["eval_sintel"] = {
             **finite_positive({k: res[k][f"{k}_mean"] for k in res}, "eval-sintel cyclegan"),
-            "corr_lookup_launches": counts["corr_lookup"]}
+            "launches": counts}
     record["launches"] = launches
     emit(record)
     return launches
@@ -953,9 +1072,10 @@ def phase_raft_train(dev):
                         "--iters", str(CHAIRS_ITERS), "--steps", str(CHAIRS_STEPS),
                         "--log-every", "1", "--out-dir", os.path.join(tmp, "raft")])
         written = written_files(os.path.join(tmp, "raft"))
-    counts = {"launches": corr_lookup.launches, "backward_launches": corr_lookup.backward_launches,
-              "plain_backwards": corr_lookup.plain_backwards}
     want = CHAIRS_ITERS * CHAIRS_STEPS
+    launches = exact_launches("train-raft", want, 0)  # autograd records the GRU
+    counts = {"launches": want, "backward_launches": corr_lookup.backward_launches,
+              "plain_backwards": corr_lookup.plain_backwards}
     if counts != {"launches": want, "backward_launches": want, "plain_backwards": 0}:
         raise AssertionError(f"train-raft: corr_lookup {counts}, want {want} launches and "
                              f"{want} backward launches, 0 plain backwards")
@@ -963,7 +1083,7 @@ def phase_raft_train(dev):
         raise AssertionError(f"train-raft: a loss is not finite: {res['losses']}")
     emit({"phase": "raft_train", "train_raft": {k: v for k, v in res.items() if k != "losses"},
           "written": written, "corr_lookup": counts})
-    return want
+    return launches
 
 
 def http(base, path, payload=None):
@@ -1085,9 +1205,9 @@ def null_entries(name, source, replaces, variants):
         for v in variants})
 
 
-PHASES = ("build", "kernel", "trunk_conv", "kernel_cost", "gemm_rate", "eval_sintel",
-          "raft_bf16", "stylize_video", "bench", "train_faststyle", "obst", "fc2_metrics",
-          "stargan", "cyclegan", "datagen", "raft_train", "demos", "parallel")
+PHASES = ("build", "kernel", "trunk_conv", "kernel_cost", "gemm_rate", "sepconv_gru",
+          "eval_sintel", "raft_bf16", "stylize_video", "bench", "train_faststyle", "obst",
+          "fc2_metrics", "stargan", "cyclegan", "datagen", "raft_train", "demos", "parallel")
 
 
 def main(argv=None) -> int:
@@ -1121,6 +1241,7 @@ def main(argv=None) -> int:
     trunk, weighted_errs = run("trunk_conv", phase_trunk_conv, dev) or (None, None)
     cost = run("kernel_cost", phase_kernel_cost, dev, weighted_errs)
     gemm = run("gemm_rate", phase_gemm_rate, dev)
+    gru = run("sepconv_gru", phase_sepconv_gru, dev)
     by_path = run("eval_sintel", phase_eval_sintel, dev) or {}
     by_path["bench_raft"] = run("raft_bf16", phase_raft_bf16, dev)
     run("stylize_video", phase_stylize_video, dev)
@@ -1160,6 +1281,11 @@ def main(argv=None) -> int:
                                               "scripts/bisect_mxu.py:15",
                                               [f"{dt}_K{K}_N128" for dt in dtypes
                                                for K in (128, 1152)]))
+    gru_source = "vst_torch/csrc/sepconv_gru.cu"
+    gru_entries = (kernel_entries("sepconv_gru", gru_source, None, gru) if gru
+                   else null_entries("sepconv_gru", gru_source, None,
+                                     [f"{k}_{a}" for k in ("gru_zr", "gru_q")
+                                      for a in ("1x5", "5x1")]))
     emit({"kernels": [
         {"name": "corr_lookup", "route": "cuda", "source": "vst_torch/csrc/corr_lookup.cu",
          "replaces": "vst/kernels/pallas_corr.py:87", "launches": timing.get("launches"),
@@ -1174,7 +1300,7 @@ def main(argv=None) -> int:
          "max_rel_err": backward.get("bwd_max_rel_err"), "ms": backward.get("bwd_kernel_ms"),
          "plain_ms": backward.get("plain_bwd_ms"), "bound_ms": backward.get("bwd_bound_ms"),
          "bound_by": "bytes" if backward else None, "library_ms": None},
-        *trunk_entries, *cost_entries, *gemm_entries,
+        *trunk_entries, *cost_entries, *gemm_entries, *gru_entries,
     ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -10,7 +10,9 @@ variant's E step (and MoGAN's M step) on the card against the CPU, MoGAN's
 and ConGAN's with RAFT through the kernel; RAFT small and train mode through
 the kernel against the plain lookup, RAFT's sequence loss and its gradients
 on the card against the CPU, and ``precompute_lt_flow`` through the kernel
-against the plain lookup; Johnson's loss falling on one batch at 256² × 16,
+against the plain lookup; RAFT's SepConvGRU through its two kernels a pass
+against the plain half-steps, and RAFT at 432×1024 through them against
+the plain GRU; Johnson's loss falling on one batch at 256² × 16,
 an OBST closure in float32 and the FAN's heatmaps on the card against the
 CPU; the feed-forward Sintel drivers through the kernel against the plain
 lookup and the GAN families' drivers on the card against the CPU; at the
@@ -29,8 +31,11 @@ import torch
 
 from vst_torch.data.device_cache import DeviceFC2Cache, DeviceStyledCache
 from vst_torch.flow.corr import build_pyramid, lookup_pyramid
-from vst_torch.flow.raft import RAFT, coords_grid
+from vst_torch.flow.raft import RAFT, SepConvGRU, coords_grid
 from vst_torch.kernels.corr_lookup import corr_lookup
+from vst_torch.kernels.sepconv_gru import (gru_q, gru_q_plain, gru_zr, gru_zr_plain,
+                                           half_step_plain, pack_gates, sepconv_gru)
+from vst_torch.nn.conv import cudnn_enabled
 from vst_torch.kernels.gemm_rate import gemm_rate, gemm_rate_plain
 from vst_torch.kernels.pad_conv3x3 import MODES, dtype_name, pad_conv3x3, pad_conv3x3_plain
 from vst_torch.metrics.fid import InceptionV3
@@ -234,7 +239,8 @@ def test_gemm_rate_sweep_and_edges(dev, dtype, tol, M, K, N, reps):
 def test_bf16_raft_through_the_kernel_matches_plain_lookup(dev, encoder_dtype, update_dtype):
     """Under RAFT's bf16 dtypes the correlation volume and its lookup stay
     float32, and the kernel is the plain lookup bit for bit, so the two
-    nets' flows agree exactly."""
+    nets' flows agree exactly. The GRU's kernels run for the float32 update
+    block (4 launches an iteration) and not for the bf16 one."""
     torch.manual_seed(0)
     fast = RAFT(iters=4, encoder_dtype=encoder_dtype, update_dtype=update_dtype).to(dev).eval()
     plain = RAFT(iters=4, lookup=lookup_pyramid, encoder_dtype=encoder_dtype,
@@ -243,14 +249,78 @@ def test_bf16_raft_through_the_kernel_matches_plain_lookup(dev, encoder_dtype, u
     g = torch.Generator(device=dev).manual_seed(2)
     i1 = 255 * torch.rand(2, 3, 64, 96, generator=g, device=dev)
     i2 = 255 * torch.rand(2, 3, 64, 96, generator=g, device=dev)
-    before = corr_lookup.launches
+    before, gru_before = corr_lookup.launches, sepconv_gru.launches
     with torch.no_grad():
         _, up_fast = fast(i1, i2)
         torch.cuda.synchronize()
         assert corr_lookup.launches == before + 4
+        assert sepconv_gru.launches == gru_before + (16 if update_dtype is None else 0)
         _, up_plain = plain(i1, i2)
     assert up_fast.dtype == torch.float32 and up_fast.shape == (2, 2, 64, 96)
     torch.testing.assert_close(up_fast, up_plain, atol=0, rtol=0)
+
+
+# SepConvGRU's kernels against the plain half-steps (PyTorch's im2col
+# convolutions): f32 sums of 5 × 384 products in another order, then sigmoid,
+# tanh and the blend; |h'| < 1
+GRU_RTOL, GRU_ATOL = 1e-5, 1e-6
+
+
+@pytest.mark.parametrize("B", [2, 4])
+@pytest.mark.parametrize("H,W", [(54, 128), (55, 128), (46, 62), (32, 32)],
+                         ids=["54x128", "55x128", "46x62", "32x32"])
+def test_sepconv_gru_kernels_match_the_plain_half_steps(dev, B, H, W):
+    """``SepConvGRU.forward`` (the 1×5 pass, then the 5×1) through the two
+    kernels of each pass, 4 launches, against the plain half-steps; and the
+    first pass's kernels one by one: ``gru_zr``'s z and r·h, and ``gru_q``
+    on the plain (z, r·h). Gates at PyTorch's default init, h in (-1, 1) and
+    x ≥ 0 as the update loop gives them; RAFT's 1/8 grids at 432×1024,
+    436×1024 (padded), the chairs crop and 256²."""
+    torch.manual_seed(B * H + W)
+    gru = SepConvGRU(128, 256).to(dev)
+    g = torch.Generator(device=dev).manual_seed(H * W + B)
+    h = torch.tanh(torch.randn(B, 128, H, W, generator=g, device=dev))
+    x = torch.relu(torch.randn(B, 256, H, W, generator=g, device=dev))
+    before = sepconv_gru.launches
+    with torch.no_grad():
+        got = gru(h, x)
+        torch.cuda.synchronize()
+        assert sepconv_gru.launches == before + 4
+        gates = pack_gates(gru.convz1, gru.convr1, gru.convq1)
+        z, rh = gru_zr(h, x, gates)
+        with cudnn_enabled(False):
+            z_want, rh_want = gru_zr_plain(h, x, gru.convz1, gru.convr1)
+            h1_want = gru_q_plain(h, x, z_want, rh_want, gru.convq1)
+            want = half_step_plain(h1_want, x, gru.convz2, gru.convr2, gru.convq2)
+        h1 = gru_q(h, x, z_want, rh_want, gates)
+    for a, b in ((z, z_want), (rh, rh_want), (h1, h1_want), (got, want)):
+        torch.testing.assert_close(a, b, rtol=GRU_RTOL, atol=GRU_ATOL)
+
+
+def test_raft_at_the_sintel_size_through_the_gru_kernels_matches_the_plain_gru(dev, monkeypatch):
+    """RAFT (20 iterations) at 4 × 432×1024, drawn as the benchmark draws
+    it (PyTorch's default init, the flow head's output conv at 0.03 of it),
+    with its GRU through the kernels against the same net with the plain
+    half-steps: each pair's mean |Δ| of the upsampled flow within the
+    benchmark's ``flow_gap_px`` limit of 2e-5 px, and 80 launches a call (20
+    iterations × 2 passes × 2 kernels), none for the plain GRU."""
+    clip = torch.from_numpy(_clip(5, SINTEL_HW, seed=4).transpose(0, 3, 1, 2).copy()).to(dev)
+    torch.manual_seed(11)
+    raft = RAFT(iters=20).to(dev).eval()
+    with torch.no_grad():
+        raft.update_block.flow_head.conv2.weight.mul_(0.03)
+        raft.update_block.flow_head.conv2.bias.mul_(0.03)
+    before = sepconv_gru.launches
+    with torch.no_grad():
+        _, got = raft(255 * clip[:4], 255 * clip[1:])
+        torch.cuda.synchronize()
+        launches = sepconv_gru.launches - before
+        monkeypatch.setattr(SepConvGRU, "half_step", lambda self, h, x: half_step_plain)
+        _, want = raft(255 * clip[:4], 255 * clip[1:])
+    assert launches == 80 and sepconv_gru.launches - before == 80
+    gaps = (got - want).abs().mean(dim=(1, 2, 3))
+    assert torch.isfinite(got).all() and want.abs().mean() > 0
+    assert gaps.max().item() <= 2e-5, gaps.tolist()
 
 
 @pytest.mark.parametrize("method", ["johnson", "dumoulin", "huang", "reconet", "ruder",
@@ -383,7 +453,9 @@ def test_cyclegan_steps_on_the_card_match_the_cpu(dev, variant):
 @pytest.mark.parametrize("small,train_mode", [(True, False), (True, True), (False, True)],
                          ids=["small", "small_train_mode", "full_train_mode"])
 def test_raft_variants_through_the_kernel_match_plain_lookup(dev, small, train_mode):
-    """Flows within 1e-3 px; 3 launches a call (radius 3 for the small net)."""
+    """Flows within 1e-3 px; 3 launches a call (radius 3 for the small net);
+    the GRU's kernels 4 a call for the full net, none for the small one's
+    ConvGRU."""
     rng = np.random.RandomState(7)
     i1, i2 = (torch.from_numpy(rng.rand(2, 3, 64, 96).astype(np.float32) * 255).to(dev)
               for _ in range(2))
@@ -391,11 +463,12 @@ def test_raft_variants_through_the_kernel_match_plain_lookup(dev, small, train_m
     fast = RAFT(iters=3, small=small, train_mode=train_mode).to(dev).eval()
     plain = RAFT(iters=3, small=small, train_mode=train_mode, lookup=lookup_pyramid).to(dev)
     plain.load_state_dict(fast.state_dict())
-    before = corr_lookup.launches
+    before, gru_before = corr_lookup.launches, sepconv_gru.launches
     with torch.no_grad():
         got, want = fast(i1, i2), plain(i1, i2)
     torch.cuda.synchronize()
     assert corr_lookup.launches == before + 3
+    assert sepconv_gru.launches == gru_before + (0 if small else 2 * 3 * 4)
     assert got[1].shape == ((3, 2, 2, 64, 96) if train_mode else (2, 2, 64, 96))
     for a, b in zip(got, want):
         torch.testing.assert_close(a, b, atol=1e-3, rtol=0)
@@ -406,15 +479,16 @@ def test_raft_sequence_loss_on_the_card_matches_the_cpu(dev, small):
     """The loss in f32 through the kernel within 1e-4 relative; every
     gradient in f64 (the plain lookup on both sides) within 1e-8 relative in
     L2; 3 launches of the lookup and 3 of its backward kernel on the card,
-    and no plain backward."""
+    no plain backward, and none of the GRU's kernels (autograd records)."""
     inputs = raft_train_inputs((64, 64), batch=2, seed=5)
     torch.manual_seed(5)
     net = RAFT(iters=3, small=small, train_mode=True)
     plain = RAFT(iters=3, small=small, train_mode=True, lookup=lookup_pyramid)
     plain.load_state_dict(net.state_dict())
     launches, backwards = corr_lookup.launches, corr_lookup.backward_launches
-    plain_backwards = corr_lookup.plain_backwards
+    plain_backwards, gru_launches = corr_lookup.plain_backwards, sepconv_gru.launches
     got, _ = raft_sequence_step(net, inputs, dev, torch.float32)
+    assert sepconv_gru.launches == gru_launches
     assert corr_lookup.launches - launches == 3
     assert corr_lookup.backward_launches - backwards == 3
     assert corr_lookup.plain_backwards == plain_backwards
@@ -630,30 +704,33 @@ SINTEL_HW = (432, 1024)  # a Sintel frame as the harness crops it
 
 def test_raft_small_at_the_sintel_size_launches_once_an_iteration(dev):
     """RAFT small (12 iterations, radius 3) in evaluation at 4×3×432×1024
-    through the kernel: 12 launches, and a finite flow of the frames' size."""
+    through the kernel: 12 launches, none of the SepConvGRU kernels (its
+    ConvGRU is the plain one), and a finite flow of the frames' size."""
     clip = torch.from_numpy(_clip(5, SINTEL_HW, seed=1).transpose(0, 3, 1, 2).copy()).to(dev)
     torch.manual_seed(6)
     raft = RAFT(iters=12, small=True).to(dev).eval()
-    before = corr_lookup.launches
+    before, gru_before = corr_lookup.launches, sepconv_gru.launches
     with torch.no_grad():
         _, up = raft(255 * clip[:4], 255 * clip[1:])
     torch.cuda.synchronize()
-    assert corr_lookup.launches - before == 12
+    assert corr_lookup.launches - before == 12 and sepconv_gru.launches == gru_before
     assert up.shape == (4, 2, *SINTEL_HW) and torch.isfinite(up).all()
 
 
 def test_precompute_lt_flow_at_the_sintel_size_launches_twice_a_frame(dev, tmp_path):
     """``precompute_lt_flow`` on an 8-frame 432×1024 clip with RAFT (20
     iterations, its flows × 0.1 as above): 2 × 20 launches for each of the 3
-    frames past the offset of 5, each output finite and of the frames' size,
-    the masks binary and neither all 0 nor all 1."""
+    frames past the offset of 5, and 4 of the GRU's kernels for each, each
+    output finite and of the frames' size, the masks binary and neither all
+    0 nor all 1."""
     torch.manual_seed(0)
     raft = RAFT(iters=20).to(dev).eval()
-    before = corr_lookup.launches
+    before, gru_before = corr_lookup.launches, sepconv_gru.launches
     out = precompute_lt_flow(_clip(8, SINTEL_HW, seed=3),
                              lambda a, b: tuple(0.1 * f for f in raft(255 * a, 255 * b)),
                              out_dir=str(tmp_path), offset=5, device=dev)
     assert corr_lookup.launches - before == 2 * 20 * 3
+    assert sepconv_gru.launches - gru_before == 4 * 2 * 20 * 3
     assert len(out) == 3 and len(list(tmp_path.iterdir())) == 3
     assert all(o.shape == (1, *SINTEL_HW, 3) and np.isfinite(o).all() for o in out)
     masks = np.stack([o[..., 2] for o in out])
@@ -665,7 +742,7 @@ def test_sharded_evaluation_on_nccl_at_the_sintel_size_is_the_serial(dev, tmp_pa
     8-frame 432×1024 clip (a seeded Johnson net, style 0, RAFT at 20
     iterations through the kernel) gives the serial ``evaluate_videos``'s
     TCL-ST and TCL-LT within 1e-4 relative, from 2 × (7 + 3) RAFT calls of 20
-    launches each."""
+    launches each, and 4 of the GRU's kernels for each."""
     from vst_torch.eval.drivers import faststyle_stylize_fn
     from vst_torch.eval.sintel import SintelVideo, evaluate_videos, evaluate_videos_sharded
     from vst_torch.parallel.mesh import create_mesh, initialize_distributed
@@ -688,13 +765,15 @@ def test_sharded_evaluation_on_nccl_at_the_sintel_size_is_the_serial(dev, tmp_pa
                              frame_transform=to_range, device=dev)
     initialize_distributed(f"file://{tmp_path}/pg", 1, 0, device="cuda")
     try:
-        calls[0], before = 0, corr_lookup.launches
+        calls[0], before, gru_before = 0, corr_lookup.launches, sepconv_gru.launches
         sharded = evaluate_videos_sharded([video], stylize, raft_apply, [0],
                                           create_mesh(devices=[dev]), frame_transform=to_range)
         launches = corr_lookup.launches - before
+        gru_launches = sepconv_gru.launches - gru_before
     finally:
         torch.distributed.destroy_process_group()
     assert calls[0] == 2 * (7 + 3) and launches == 20 * calls[0], (calls, launches)
+    assert gru_launches == 4 * launches, gru_launches
     for key in ("TCL-ST", "TCL-LT"):
         want, got = serial[key][f"{key}_mean"], sharded[key][f"{key}_mean"]
         assert np.isfinite(got) and abs(got - want) <= 1e-4 * abs(want), (key, got, want)

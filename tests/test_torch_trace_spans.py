@@ -128,6 +128,7 @@ def test_eval_sintel_counts_by_hand(tmp_path, monkeypatch):
 
 
 def test_raft_records_its_call_and_three_stages():
+    """And the GRU's span once an iteration inside the update loop."""
     torch.manual_seed(0)
     raft = RAFT(iters=2).eval()
     x = torch.rand(1, 3, 64, 64) * 255
@@ -136,11 +137,13 @@ def test_raft_records_its_call_and_three_stages():
     snap = trace.snapshot()
     stages = ("vst.raft.encode", "vst.raft.corr", "vst.raft.update")
     assert {k: (v["calls"], v["parent"]) for k, v in snap["spans"].items()} == {
-        "vst.raft.call": (1, None), **{s: (1, "vst.raft.call") for s in stages}}
+        "vst.raft.call": (1, None), **{s: (1, "vst.raft.call") for s in stages},
+        "vst.raft.gru": (2, "vst.raft.update")}
     assert sum(snap["spans"][s]["host_ms"] for s in stages) <= snap["spans"]["vst.raft.call"][
         "host_ms"]
-    assert {"vst.raft.call", *stages} <= names
-    assert snap["counters"] == {}  # the plain lookup on the CPU launches no kernel
+    assert snap["spans"]["vst.raft.gru"]["host_ms"] <= snap["spans"]["vst.raft.update"]["host_ms"]
+    assert {"vst.raft.call", "vst.raft.gru", *stages} <= names
+    assert snap["counters"] == {}  # the plain lookup and GRU on the CPU launch no kernel
 
 
 @pytest.mark.parametrize("frames,batch", [(4, 2), (3, 1), (5, 2)])
@@ -189,7 +192,8 @@ def _span(device_ms, host_ms=0.0):
 
 SYNTHETIC = {
     "spans": {"vst.raft.encode": _span(760.0), "vst.raft.corr": _span(95.0),
-              "vst.raft.update": _span(2660.0), "vst.eval.ops": _span(38.0),
+              "vst.raft.update": _span(2660.0), "vst.raft.gru": _span(760.0),
+              "vst.eval.ops": _span(38.0),
               "vst.eval.upload": _span(1.0, host_ms=114.0),
               "vst.stream.upload": _span(0.5, host_ms=40.0), "vst.stream.download": _span(125.0),
               "vst.train.d_loss": _span(700.0), "vst.train.g_loss": _span(1100.0),
@@ -198,6 +202,7 @@ SYNTHETIC = {
     "counters": {"vst.eval.frames_scored": 19, "vst.eval.stylize_calls": 96,
                  "vst.eval.stylize_reuses": 33,
                  "vst.eval.host_reads": 37, "vst.corr_lookup.launches": 380,
+                 "vst.gru.launches": 1520,
                  "vst.stream.frames": 50, "vst.stream.pageable_bytes": 535756800,
                  "vst.train.iterations": 2}}
 
@@ -206,7 +211,8 @@ READERS = {
     "raft_update_ms.eval": 2660.0 / 19, "tcl_ops_ms.eval": 38.0 / 19,
     "upload_ms.eval": 114.0 / 19, "stylize_calls.eval": 96 / 19, "host_reads.eval": 37 / 19,
     "stylize_reuses.eval": 33 / 19,
-    "corr_lookup_launches.eval": 20.0, "upload_ms.stream": 40.0 / 50,
+    "corr_lookup_launches.eval": 20.0, "raft_gru_ms.eval": 760.0 / 19,
+    "gru_launches.eval": 80.0, "upload_ms.stream": 40.0 / 50,
     "download_ms.stream": 125.0 / 50, "pageable_bytes.stream": 10.715136,
     "fwd_ms.train": 900.0, "bwd_ms.train": 650.0, "optim_ms.train": 160.0}
 
@@ -269,6 +275,8 @@ def test_a_traced_run_reads_every_new_metric_on_the_card(card, workload):
     if c.mix["loop"] == "eval":
         assert counters["vst.eval.frames_scored"] == c.mix["frames"] - 1
         assert counters["vst.corr_lookup.launches"] == ctx["lookups"] > 0
+        # each iteration's lookup, and gru_zr and gru_q for each of its 2 passes
+        assert counters["vst.gru.launches"] == 4 * ctx["lookups"]
     if c.mix["loop"] == "stream":
         h, w = c.mix["hw"]
         assert values["pageable_bytes.stream"] == pytest.approx(2 * h * w * 3 * 4 / 1e6,

@@ -32,6 +32,8 @@ spans and counters of the port:
 ``vst.raft.encode``                    RAFT's feature and context encoders
 ``vst.raft.corr``                      the correlation pyramid
 ``vst.raft.update``                    the update loop with its lookups and the upsample
+``vst.raft.gru``                       one SepConvGRU call (both passes) in the update loop
+``vst.gru.launches``                   counter: launches of the SepConvGRU kernels
 ``vst.corr_lookup.launches``           counter: launches of the lookup kernel
 ``vst.corr_lookup.backward``           the lookup's backward (the backward kernel on CUDA)
 ``vst.corr_lookup.backwards``          counter: the lookup's backward passes

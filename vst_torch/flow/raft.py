@@ -5,8 +5,10 @@ Full: feature encoder (instance norm) + context encoder (batch norm, stored
 statistics; the batch's once :meth:`RAFT.unfreeze_bn` and in training mode)
 → 4-level all-pairs correlation pyramid → a Python loop of GRU iterations:
 windowed corr lookup (the Hopper kernel's wrapper, radius 4) →
-motion encoder → SepConvGRU → flow head; after the loop, the upsample-mask
-head and the convex 8× upsample of the 1/8-resolution flow. Small
+motion encoder → SepConvGRU (on CUDA in float32 outside autograd, two fused
+kernels a pass, ``vst_torch.kernels.sepconv_gru``) → flow head; after the
+loop, the upsample-mask head and the convex 8× upsample of the
+1/8-resolution flow. Small
 (``small=True``): bottleneck encoders (instance norm / none), radius 3, the
 small motion encoder, a 3×3 ConvGRU, and the bilinear ``upflow8`` in place
 of the mask head. Module names are the reference's, so its ``state_dict``
@@ -32,7 +34,8 @@ lookup_pyramid``, since the kernel's wrapper takes float32 only.
 While a profiler runs, ``forward`` records the span ``vst.raft.call`` and
 inside it ``vst.raft.encode`` (both encoders), ``vst.raft.corr`` (the
 pyramid) and ``vst.raft.update`` (the loop with its lookups and the
-upsample; ``vst_torch.core.trace``).
+upsample), and inside that ``vst.raft.gru`` (each SepConvGRU call;
+``vst_torch.core.trace``).
 """
 
 from __future__ import annotations
@@ -46,6 +49,7 @@ from torch import nn
 from vst_torch.core.trace import span
 from vst_torch.flow.corr import build_pyramid
 from vst_torch.kernels.corr_lookup import corr_lookup
+from vst_torch.kernels.sepconv_gru import half_step_plain, records_grad, sepconv_gru
 from vst_torch.nn.conv import TorchConv, cudnn_enabled
 from vst_torch.nn.init import kaiming_normal_fan_out_
 from vst_torch.nn.norm import instance_norm
@@ -269,25 +273,42 @@ class ConvGRU(nn.Module):
 class SepConvGRU(nn.Module):
     """``update.py:33-60``: a horizontal (1×5) then a vertical (5×1) GRU pass.
     The gates compute in ``dtype``; the hidden state h stays float32
-    (``vst/flow/raft.py:216-232``)."""
+    (``vst/flow/raft.py:216-232``).
+
+    With the gates in float32 and autograd not recording
+    (:meth:`half_step`), each pass is ``vst_torch.kernels.sepconv_gru``: its
+    two fused kernels on CUDA, ``half_step_plain`` on the CPU; otherwise
+    (training, the bfloat16 update block) it is ``half_step_plain``. While a
+    profiler runs, ``forward`` records the span ``vst.raft.gru``."""
 
     def __init__(self, hidden_dim: int = 128, input_dim: int = 192 + 128,
                  dtype: Optional[torch.dtype] = None):
         super().__init__()
+        self.dtype = dtype
         cin = hidden_dim + input_dim
         for tag, ks, pad in (("1", (1, 5), (0, 2)), ("2", (5, 1), (2, 0))):
             for gate in ("z", "r", "q"):
                 setattr(self, f"conv{gate}{tag}",
                         TorchConv(cin, hidden_dim, ks, padding=pad, compute_dtype=dtype))
 
+    def _convs(self, tag: str):
+        return [getattr(self, f"conv{gate}{tag}") for gate in ("z", "r", "q")]
+
+    def half_step(self, h: torch.Tensor, x: torch.Tensor) -> Callable:
+        """The half-step ``forward(h, x)`` runs: the kernels' wrapper
+        ``sepconv_gru`` for gates in float32 (``dtype`` None) with autograd
+        not recording (grad disabled, or neither input nor any parameter
+        requires grad), else ``half_step_plain``."""
+        if self.dtype is None and not records_grad(h, x, *self.parameters()):
+            return sepconv_gru
+        return half_step_plain
+
     def forward(self, h, x):
-        for tag in ("1", "2"):
-            hx = torch.cat([h.to(x.dtype), x], 1)
-            z = torch.sigmoid(getattr(self, f"convz{tag}")(hx))
-            r = torch.sigmoid(getattr(self, f"convr{tag}")(hx))
-            q = torch.tanh(getattr(self, f"convq{tag}")(torch.cat([r * h.to(r.dtype), x], 1)))
-            h = (1 - z.to(h.dtype)) * h + z.to(h.dtype) * q.to(h.dtype)
-        return h
+        with span("vst.raft.gru"):
+            step = self.half_step(h, x)
+            for tag in ("1", "2"):
+                h = step(h, x, *self._convs(tag))
+            return h
 
 
 class UpMaskHead(nn.Sequential):
